@@ -1,0 +1,19 @@
+"""The declarative pipeline API of the port.
+
+    spec  = PipelineSpec(topology=..., sampler=..., budget=...)
+    pipe  = compile(spec, device="cuda")
+    state = pipe.init()
+    state, answers = pipe.run_epoch(state, pipe.default_key, values,
+                                    strata, counts)
+"""
+from repro_torch.api.pipeline import (CompiledPipeline, PipelineState,
+                                      WindowAnswers, compile)
+from repro_torch.api.spec import (BudgetSpec, PipelineSpec, SamplerSpec,
+                                  SpecError, StrataSpec, TelemetrySpec,
+                                  TopologySpec, resolve)
+
+__all__ = [
+    "PipelineSpec", "TopologySpec", "SamplerSpec", "BudgetSpec",
+    "TelemetrySpec", "StrataSpec", "SpecError", "resolve", "compile",
+    "CompiledPipeline", "PipelineState", "WindowAnswers",
+]

@@ -1,0 +1,436 @@
+"""The scan engine: the whole hierarchy as one tick, ``T`` ticks an epoch.
+
+The counterpart of the scan engine in ``repro.core.tree``: ingest → per
+level flush, sample, compact and route to the parent → metadata fold →
+root query, for every level in one tick function, and an epoch function
+that runs ``T`` ticks. The reference's ``lax.scan`` is a Python loop
+here; nothing inside it reads a device value back to the host (the tick
+counter is read once per epoch by the caller, so interval gates are
+host integers). An epoch draws all its priorities up front: one batched
+threefry pass per level over ``[T, nodes, capacity]``, bitwise the
+draws the reference makes tick by tick from the same keys.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core import error as err
+from repro_torch.core import prng, queries, sampling, srs, whs
+from repro_torch.core.types import IntervalBatch, StratumMeta
+from repro_torch.core.window import TreeState
+
+
+# --------------------------------------------------------------------------
+# Deterministic per-node keys: fold (tick, level, node) into the base key.
+# --------------------------------------------------------------------------
+def _node_key(key, t, lvl: int, ix):
+    return prng.fold_in(prng.fold_in(prng.fold_in(key, t), lvl), ix)
+
+
+def _level_keys(key, t, lvl: int, n_nodes: int):
+    """``[..., n_nodes, 2]``: node ``i``'s key at tick(s) ``t``."""
+    k = prng.fold_in(prng.fold_in(key, t), lvl)
+    return prng.fold_in(k[..., None, :],
+                        torch.arange(n_nodes, device=k.device))
+
+
+def epoch_priorities(key, ts: torch.Tensor, lvl: int, n_nodes: int,
+                     cap: int) -> torch.Tensor:
+    """f32 ``[T, n_nodes, cap]``: the uniforms every node of level ``lvl``
+    draws at each tick of ``ts`` (``uniform(_level_keys(key, t, lvl,
+    n)[i], (cap,))``), in one batched pass."""
+    return prng.uniform(_level_keys(key, ts, lvl, n_nodes), (cap,))
+
+
+def derive_capacities(fanin, capacity: int, max_sample_sizes,
+                      interval_ticks) -> list[int]:
+    """Per-level buffer capacities: level ``l+1`` holds every child's
+    budget ceiling times the arrival bound (children per parent ×
+    flushes per interval), so a parent buffer never truncates."""
+    capacities: list[int] = []
+    cap = int(capacity)
+    for lvl, n_nodes in enumerate(fanin):
+        capacities.append(cap)
+        if lvl + 1 < len(fanin):
+            children_per_parent = -(-n_nodes // fanin[lvl + 1])
+            flushes = -(-interval_ticks[lvl + 1] // interval_ticks[lvl])
+            cap = max(int(max_sample_sizes[lvl]) * children_per_parent
+                      * flushes, 64)
+    return capacities
+
+
+def _child_routing(n_nodes: int, n_parents: int) -> np.ndarray:
+    """``child_of[p, j]`` = parent ``p``'s ``j``-th child (ascending),
+    padded with the sentinel ``n_nodes``; children map by ``ix %
+    n_parents`` (the testbed wiring)."""
+    cpp = -(-n_nodes // n_parents)
+    child_of = np.full((n_parents, cpp), n_nodes, np.int64)
+    for j in range(n_nodes):
+        child_of[j % n_parents, j // n_parents] = j
+    return child_of
+
+
+def _present_strata(strata_c, valid_c, num_strata: int):
+    """bool[n, X]: strata each node forwards items for (a message with no
+    items for a stratum contributes no metadata)."""
+    n = strata_c.shape[0]
+    seg = torch.where(valid_c, whs._node_ix(n, strata_c.device) * num_strata
+                      + strata_c, n * num_strata)
+    cnt = sampling.segment_sum(
+        torch.ones(seg.numel(), dtype=torch.float32, device=seg.device),
+        seg.reshape(-1), n * num_strata)
+    return (cnt > 0).reshape(n, num_strata)
+
+
+def _route_pack(values_c, strata_c, valid_c, child_of: torch.Tensor):
+    """Gather each parent's children and pack their valid items to the
+    front of the parent row: children in index order, items in compacted
+    order. → ``(values[P, D], strata[P, D], n_delivered[P])``."""
+    n, oc = values_c.shape
+    p, cpp = child_of.shape
+    d = cpp * oc
+
+    def pad(a):
+        return torch.cat([a, a.new_zeros((1, oc))])
+
+    gv = pad(values_c)[child_of].reshape(p, d)
+    gs = pad(strata_c)[child_of].reshape(p, d)
+    gm = pad(valid_c)[child_of].reshape(p, d)
+    return whs.pack_rows(gv, gs, gm, d)
+
+
+def _linspace(start, stop, num: int):
+    """``jnp.linspace(start, stop, num)`` bit for bit: ``start·(1 − s) +
+    stop·s`` with ``s = i/(num−1)``, which the reference's compiled code
+    contracts to ``fma(stop, s, start·(1 − s))``; the last edge is
+    ``stop``."""
+    div = num - 1
+    step = torch.arange(div, dtype=torch.float32, device=start.device) / div
+    out = sampling.fma(stop, step, start * (1.0 - step))
+    return torch.cat([out, stop.reshape(1)])
+
+
+def _histogram_edges(values, selected, hist_bins: int):
+    lo = torch.where(selected, values, torch.inf).min()
+    hi = torch.where(selected, values, -torch.inf).max()
+    return _linspace(lo, hi + 1e-6, hist_bins + 1)
+
+
+# --------------------------------------------------------------------------
+# Node, level and root math.
+# --------------------------------------------------------------------------
+def _whs_root_core(values, strata, valid, w_in, c_in, sample_size,
+                   priorities, *, num_strata, allocation, backend, budget,
+                   hist_bins=64, telemetry=False):
+    """Root = sampling + the paper's query workload: windowed SUM and MEAN
+    with CLT bounds and a value histogram (§III-A lines 16-20)."""
+    batch = IntervalBatch(values, strata, valid, StratumMeta(w_in, c_in))
+    res = whs.whsamp(None, batch, sample_size, num_strata,
+                     allocation=allocation, backend=backend,
+                     max_reservoir=budget, priorities=priorities)
+    s = err.approx_sum(values, strata, res.selected, res.meta, num_strata)
+    m = err.approx_mean(values, strata, res.selected, res.meta, num_strata)
+    edges = _histogram_edges(values, res.selected, hist_bins)
+    h = queries.weighted_histogram(batch, res, num_strata, edges)
+    outs = (s.estimate, s.variance, m.estimate, m.variance,
+            res.selected.sum(dtype=torch.int32), h.estimate)
+    if telemetry:
+        outs = outs + (res.c.float(), res.y.float())
+    return outs
+
+
+def _srs_root_core(values, strata, valid, p_keep, f_total, priorities, *,
+                   num_strata, hist_bins=64):
+    """The same workload under SRS, with Horvitz–Thompson 1/f weights."""
+    batch = IntervalBatch(values, strata, valid,
+                          StratumMeta.identity(num_strata, values.device))
+    selected = srs.srs_select(None, batch, p_keep, priorities=priorities)
+    s = srs.srs_sum(batch, selected, f_total)
+    m = srs.srs_mean(batch, selected, f_total)
+    edges = _histogram_edges(values, selected, hist_bins)
+    bin_ix = torch.clamp(torch.searchsorted(edges, values, right=True) - 1,
+                         0, hist_bins - 1)
+    hist = sampling.segment_sum(
+        torch.where(selected, 1.0 / f_total, 0.0),
+        torch.where(selected, bin_ix, hist_bins - 1), hist_bins)
+    return (s.estimate, s.variance, m.estimate, m.variance,
+            selected.sum(dtype=torch.int32), hist)
+
+
+def _whs_level_core(values, strata, valid, w_in, c_in, sample_size,
+                    priorities, *, num_strata, out_capacity, child_of,
+                    allocation, backend):
+    """One WHS level: ``whs.level_tick`` (one fused kernel launch for
+    ``pallas_fused``), then routing to the parents."""
+    v_c, s_c, valid_c, meta, _ = whs.level_tick(
+        None, values, strata, valid, w_in, c_in, sample_size, num_strata,
+        out_capacity=out_capacity, allocation=allocation, backend=backend,
+        priorities=priorities)
+    present = _present_strata(s_c, valid_c, num_strata)
+    packed_v, packed_s, n_deliv = _route_pack(v_c, s_c, valid_c, child_of)
+    n_fwd = valid_c.sum(dim=1, dtype=torch.int32)
+    return (packed_v, packed_s, n_deliv, meta.weight, meta.count, present,
+            n_fwd)
+
+
+def _srs_level_core(values, strata, valid, w_in, c_in, p_keep, priorities,
+                    *, num_strata, out_capacity, child_of):
+    """One SRS level: coin-flip keep, compact, route to the parents."""
+    out_cap = min(out_capacity, values.shape[1])
+    selected = srs.level_srs_select(None, valid, p_keep,
+                                    priorities=priorities)
+    v_c, s_c, n_sel = whs.pack_rows(values, strata, selected, out_cap)
+    n_keep = torch.clamp_max(n_sel, out_cap)
+    valid_c = whs._slot_valid(n_sel, out_cap)
+    present = _present_strata(s_c, valid_c, num_strata)
+    packed_v, packed_s, n_deliv = _route_pack(v_c, s_c, valid_c, child_of)
+    # SRS carries no sampler metadata: W/C sets pass through unchanged.
+    return packed_v, packed_s, n_deliv, w_in, c_in, present, n_keep
+
+
+# --------------------------------------------------------------------------
+# Scan engine.
+# --------------------------------------------------------------------------
+def _append_rows(values, strata, fill, dropped, add_v, add_s, add_n,
+                 empty: bool = False):
+    """Append each row's first ``add_n[r]`` incoming items at the row's
+    fill offset, truncating at capacity (the prefix backpressure rule).
+    ``empty=True`` is the all-1-interval case: the receiving buffer is
+    empty, so the buffer becomes the (zero-padded, cut) message."""
+    n, cap = values.shape
+    k = add_v.shape[1]
+    add_n = add_n.to(torch.int32)
+    if empty:
+        take = torch.clamp_max(add_n, cap)
+        if k < cap:
+            add_v = torch.cat([add_v, add_v.new_zeros((n, cap - k))], dim=1)
+            add_s = torch.cat([add_s, add_s.new_zeros((n, cap - k))], dim=1)
+        else:
+            add_v = add_v[:, :cap].contiguous().clone()
+            add_s = add_s[:, :cap].contiguous().clone()
+        return add_v, add_s, take, dropped + (add_n - take)
+    take = torch.minimum(add_n, cap - fill)
+    j = torch.arange(k, dtype=torch.int32, device=values.device)[None, :]
+    ok = j < take[:, None]
+    row = torch.arange(n, dtype=torch.int64, device=values.device)[:, None]
+    idx = torch.where(ok, row * cap + fill[:, None] + j, n * cap)
+    idx = idx.reshape(-1).to(torch.int64)
+    values = torch.cat([values.reshape(-1), values.new_zeros(1)])
+    strata = torch.cat([strata.reshape(-1), strata.new_zeros(1)])
+    values = values.scatter_(0, idx, add_v.reshape(-1))[:-1].reshape(n, cap)
+    strata = strata.scatter_(0, idx, add_s.reshape(-1))[:-1].reshape(n, cap)
+    return values, strata, fill + take, dropped + (add_n - take)
+
+
+def _fold_meta_graph(wc_acc, c_acc, seen, child_of: torch.Tensor, present,
+                     w_out, c_out):
+    """Fold each child's (W^out, C^out) message into its parent's interval
+    accumulators, child slots in ascending order (the reference's f32
+    accumulation order)."""
+    x = w_out.shape[1]
+
+    def pad(a):
+        return torch.cat([a, a.new_zeros((1, x))])
+
+    wp, cp, prp = pad(w_out), pad(c_out), pad(present)
+    for k in range(child_of.shape[1]):
+        ch = child_of[:, k]
+        pr = prp[ch]
+        wc_acc = wc_acc + torch.where(pr, wp[ch] * cp[ch], 0.0)
+        c_acc = c_acc + torch.where(pr, cp[ch], 0.0)
+        seen = seen | pr
+    return wc_acc, c_acc, seen
+
+
+def _flush_meta(wc_acc, c_acc, seen, w_in, c_in):
+    """Fresh count-weighted-mean sets where metadata arrived this
+    interval, sticky values elsewhere."""
+    w_merged = wc_acc / torch.clamp_min(c_acc, 1.0)
+    return (torch.where(seen, w_merged, w_in),
+            torch.where(seen, c_acc, c_in))
+
+
+def _build_scan_tick(fanin, capacities, sample_sizes, interval_ticks,
+                     num_strata, allocation, backend, mode, p_level,
+                     fraction, device, telemetry=False, hist_bins=64):
+    """The fused whole-tree tick: ``(state, t, budgets, ing_v, ing_s,
+    ing_n, priorities) → (state', per-tick outputs)``.
+
+    Levels chain as in the reference: level ``l``'s packed forwards are
+    appended to level ``l+1`` before level ``l+1`` flushes, so one tick
+    pushes data through the whole hierarchy. ``t`` is a host integer,
+    so a level whose interval has not elapsed is skipped on the host.
+    ``sample_sizes`` are the static per-level ceilings (they size the
+    forwarding buffers); ``budgets`` f32[n_levels] on the device are the
+    budgets applied. ``priorities`` holds one f32 ``[n, cap]`` per level.
+    """
+    n_levels = len(fanin)
+    child_tables = [torch.as_tensor(_child_routing(fanin[l], fanin[l + 1]),
+                                    device=device)
+                    for l in range(n_levels - 1)]
+    p_keep = torch.tensor(p_level, dtype=torch.float32, device=device)
+    f_total = (torch.tensor(fraction, dtype=torch.float32, device=device)
+               if fraction is not None else None)
+
+    def f32_zero(shape=()):
+        return torch.zeros(shape, dtype=torch.float32, device=device)
+
+    def tick(state: TreeState, t: int, budgets, ing_v, ing_s, ing_n,
+             priorities):
+        lv = {f: list(getattr(state, f)) for f in TreeState.LEVEL_FIELDS}
+        if not isinstance(state.route, tuple):
+            ing_s = state.route[ing_s.to(torch.int64)
+                                .clamp(0, state.route.shape[0] - 1)]
+
+        (lv["values"][0], lv["strata"][0], lv["fill"][0],
+         lv["dropped"][0]) = _append_rows(
+            lv["values"][0], lv["strata"][0], lv["fill"][0],
+            lv["dropped"][0], ing_v, ing_s, ing_n,
+            empty=int(interval_ticks[0]) == 1)
+
+        n_fwd_levels, tel_in, tel_kept = [], [], []
+        root_out = root_strat = None
+        for l in range(n_levels):
+            iv = int(interval_ticks[l])
+            is_root = l == n_levels - 1
+            fill = lv["fill"][l]
+            due = t % iv == 0
+            if telemetry:
+                tel_in.append(fill.sum().float() if due else f32_zero())
+            if not due:
+                # Not-due tick: every leaf unchanged, null outputs.
+                if is_root:
+                    root_out = (torch.zeros((), dtype=torch.bool,
+                                            device=device),
+                                f32_zero(), f32_zero(), f32_zero(),
+                                f32_zero(),
+                                torch.zeros((), dtype=torch.int32,
+                                            device=device),
+                                f32_zero((hist_bins,)))
+                    if telemetry and mode != "srs":
+                        root_strat = (f32_zero((num_strata,)),) * 2
+                    if telemetry:
+                        tel_kept.append(f32_zero())
+                else:
+                    n_fwd_levels.append(torch.zeros((), dtype=torch.int32,
+                                                    device=device))
+                    if telemetry:
+                        tel_kept.append(f32_zero())
+                continue
+
+            cap = capacities[l]
+            valid = (torch.arange(cap, dtype=torch.int32,
+                                  device=device)[None, :] < fill[:, None])
+            w_eff, c_eff = _flush_meta(lv["wc_acc"][l], lv["c_acc"][l],
+                                       lv["seen"][l], lv["w_in"][l],
+                                       lv["c_in"][l])
+            values, strata = lv["values"][l], lv["strata"][l]
+            prio = priorities[l]
+            if is_root:
+                if mode == "srs":
+                    outs = _srs_root_core(
+                        values[0], strata[0], valid[0], p_keep, f_total,
+                        prio[0], num_strata=num_strata, hist_bins=hist_bins)
+                else:
+                    outs = _whs_root_core(
+                        values[0], strata[0], valid[0], w_eff[0], c_eff[0],
+                        budgets[l], prio[0], num_strata=num_strata,
+                        allocation=allocation, backend=backend,
+                        budget=int(sample_sizes[l]), hist_bins=hist_bins,
+                        telemetry=telemetry)
+                    if telemetry:
+                        root_strat, outs = outs[-2:], outs[:-2]
+                root_out = (fill.sum() > 0,) + outs
+                if telemetry:
+                    tel_kept.append(root_out[5].float())
+            else:
+                if mode == "srs":
+                    (packed_v, packed_s, n_deliv, w_out, c_out, present,
+                     n_fwd) = _srs_level_core(
+                        values, strata, valid, w_eff, c_eff, p_keep, prio,
+                        num_strata=num_strata,
+                        out_capacity=int(sample_sizes[l]),
+                        child_of=child_tables[l])
+                else:
+                    (packed_v, packed_s, n_deliv, w_out, c_out, present,
+                     n_fwd) = _whs_level_core(
+                        values, strata, valid, w_eff, c_eff, budgets[l],
+                        prio, num_strata=num_strata,
+                        out_capacity=int(sample_sizes[l]),
+                        child_of=child_tables[l], allocation=allocation,
+                        backend=backend)
+                (lv["values"][l + 1], lv["strata"][l + 1], lv["fill"][l + 1],
+                 lv["dropped"][l + 1]) = _append_rows(
+                    lv["values"][l + 1], lv["strata"][l + 1],
+                    lv["fill"][l + 1], lv["dropped"][l + 1],
+                    packed_v, packed_s, n_deliv,
+                    empty=(iv == 1 and int(interval_ticks[l + 1]) == 1))
+                (lv["wc_acc"][l + 1], lv["c_acc"][l + 1],
+                 lv["seen"][l + 1]) = _fold_meta_graph(
+                    lv["wc_acc"][l + 1], lv["c_acc"][l + 1],
+                    lv["seen"][l + 1], child_tables[l], present, w_out,
+                    c_out)
+                n_fwd_levels.append(n_fwd.sum(dtype=torch.int32))
+                if telemetry:
+                    tel_kept.append(n_fwd_levels[-1].float())
+            # Interval reset (``flush``): occupancy and accumulators
+            # cleared, sticky sets refreshed; stale slots stay masked.
+            lv["fill"][l] = torch.zeros_like(fill)
+            lv["wc_acc"][l] = torch.zeros_like(lv["wc_acc"][l])
+            lv["c_acc"][l] = torch.zeros_like(lv["c_acc"][l])
+            lv["seen"][l] = torch.zeros_like(lv["seen"][l])
+            lv["w_in"][l], lv["c_in"][l] = w_eff, c_eff
+
+        new_tel = state.telemetry
+        if telemetry:
+            tel = state.telemetry
+            d_in = torch.stack(tel_in)
+            d_kept = torch.stack(tel_kept)
+            flushed = d_in > 0
+            root_ok, se, sv = root_out[0], root_out[1], root_out[2]
+            new_tel = tel._replace(
+                items_in=tel.items_in + d_in,
+                items_kept=tel.items_kept + d_kept,
+                flushes=tel.flushes + flushed.to(torch.int32),
+                saturation_hits=tel.saturation_hits
+                + (flushed & (d_kept >= d_in)).to(torch.int32),
+                windows=tel.windows + root_ok.to(torch.int32),
+                root_sum=tel.root_sum + torch.where(root_ok, se, 0.0),
+                root_sum_var=tel.root_sum_var
+                + torch.where(root_ok, sv, 0.0))
+            if root_strat is not None:
+                new_tel = new_tel._replace(
+                    stratum_in=new_tel.stratum_in + root_strat[0],
+                    stratum_kept=new_tel.stratum_kept + root_strat[1])
+
+        new_state = TreeState(
+            **{f: tuple(lv[f]) for f in TreeState.LEVEL_FIELDS},
+            qstate=(), telemetry=new_tel, route=state.route)
+        n_fwd = (torch.stack(n_fwd_levels) if n_fwd_levels else
+                 torch.zeros((0,), dtype=torch.int32, device=device))
+        return new_state, root_out + (n_fwd,)
+
+    return tick
+
+
+def _build_epoch_fn(tick_fn, fanin, capacities):
+    """An epoch: ``(state, key, t0, budgets, ing_v, ing_s, ing_n) →
+    (state', (ticks, *stacked per-tick outputs))``. ``t0`` is the host
+    value of the first tick; ingest is ``[T, fanin[0], width]``."""
+
+    def epoch(state: TreeState, key, t0: int, budgets, ing_v, ing_s, ing_n):
+        epoch_ticks = ing_v.shape[0]
+        ts = torch.arange(epoch_ticks, dtype=torch.int64,
+                          device=ing_v.device) + t0
+        prio = [epoch_priorities(key, ts, l, fanin[l], capacities[l])
+                for l in range(len(fanin))]
+        rows = []
+        for i in range(epoch_ticks):
+            state, out = tick_fn(state, t0 + i, budgets, ing_v[i], ing_s[i],
+                                 ing_n[i], [p[i] for p in prio])
+            rows.append(out)
+        stacked = tuple(torch.stack(col) for col in zip(*rows))
+        return state, (ts.to(torch.int32),) + stacked
+
+    return epoch

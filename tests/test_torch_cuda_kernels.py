@@ -1,0 +1,137 @@
+"""The port's CUDA kernels against their plain PyTorch versions.
+
+Every test needs a CUDA device: each carries the ``cuda`` marker and
+skips without one. The module imports neither JAX nor the reference, so
+it also runs on a machine that has only the port:
+
+    python -m pytest -m cuda tests/test_torch_cuda_kernels.py
+
+Masks, counts, reservoirs, weights, compacted buffers and ``n_keep``
+are compared bitwise; ``stratified_stats``' Σx and Σx² within
+``SUMS_RTOL`` (a fixed-order block reduction against item order).
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.core import sampling as tsamp  # noqa: E402
+from repro_torch.kernels import LAUNCHES, reset_launches  # noqa: E402
+from repro_torch.kernels.fused_level_tick import ops as tft  # noqa: E402
+from repro_torch.kernels.fused_level_tick import ref as tft_ref  # noqa: E402
+from repro_torch.kernels.stratified_stats import ops as tss  # noqa: E402
+from repro_torch.kernels.stratified_stats import ref as tss_ref  # noqa: E402
+
+NAMES = ("keep", "values_c", "strata_c", "n_keep", "c", "reservoirs", "y",
+         "w_out", "c_out")
+SUMS_RTOL = 1e-5
+
+
+def _bits(a, b, name=""):
+    a, b = np.ascontiguousarray(a), np.ascontiguousarray(b)
+    assert a.shape == b.shape and a.dtype == b.dtype, name
+    np.testing.assert_array_equal(a.reshape(-1).view(np.uint8),
+                                  b.reshape(-1).view(np.uint8), err_msg=name)
+
+
+def _level(seed, n, cap, x, fill, packed, ties=False):
+    rng = np.random.default_rng(seed)
+    vals = rng.normal(100, 25, (n, cap)).astype(np.float32)
+    vals[:, ::7] *= 400.0
+    strata = rng.integers(0, x, (n, cap)).astype(np.int32)
+    counts = rng.integers(max(int(0.7 * fill * cap), 0), int(fill * cap) + 1,
+                          n)
+    if packed:
+        valid = np.arange(cap)[None, :] < counts[:, None]
+    else:
+        valid = np.zeros((n, cap), bool)
+        for i in range(n):
+            valid[i, rng.choice(cap, counts[i], replace=False)] = True
+    if ties:
+        u = (rng.integers(0, 53, (n, cap)) / 53.0).astype(np.float32)
+    else:
+        u = rng.random((n, cap)).astype(np.float32)
+    w_in = np.abs(rng.normal(1, 0.2, (n, x))).astype(np.float32)
+    c_in = rng.integers(0, 500, (n, x)).astype(np.float32)
+    return vals, strata, valid, u, w_in, c_in
+
+
+# (n, cap, X, budget, fill, packed, allocation, out_capacity, ties)
+GRID = [
+    (4, 11008, 4, 1100, 0.73, True, "fair", 1100, False),  # testbed L0
+    (2, 2200, 4, 1100, 1.0, True, "fair", 1100, False),    # testbed L1
+    (2, 2200, 4, 2200, 1.0, True, "fair", 2200, False),    # saturated
+    (2, 2200, 4, 5000, 0.6, False, "fair", 1500, False),   # sat., holes
+    (3, 4096, 8, 900, 0.9, True, "fair", 500, False),      # OC < keeps
+    (2, 4096, 4, 700, 0.8, False, "fair", 700, True),      # exact ties
+    (3, 4096, 6, 1000, 0.9, True, "proportional", 1000, False),
+    (3, 4096, 6, 1000, 0.9, False, "neyman", 1000, False),
+    (3, 8192, 32, 1500, 0.95, False, "neyman", 1200, True),  # the limit
+    (2, 1024, 4, 0, 1.0, True, "fair", 64, False),         # zero budget
+]
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "n,cap,x,budget,fill,packed,allocation,out_cap,ties", GRID)
+def test_fused_level_tick_kernel_matches_plain(cuda_device, n, cap, x,
+                                               budget, fill, packed,
+                                               allocation, out_cap, ties):
+    arrs = [torch.from_numpy(a) for a in _level(n + cap, n, cap, x, fill,
+                                                packed, ties)]
+    size = torch.tensor(float(budget))
+    want = tft_ref.fused_level_tick(*arrs, size, x, out_cap,
+                                    allocation=allocation)
+    got = tft.fused_level_tick(*(a.to(cuda_device) for a in arrs),
+                               size.to(cuda_device), x, out_cap,
+                               allocation=allocation)
+    for name, g, w in zip(NAMES, got, want):
+        _bits(g.cpu().numpy(), w.numpy(), name)
+
+
+@pytest.mark.cuda
+def test_fused_select_kernel_matches_plain(cuda_device):
+    vals, strata, valid, u, _, _ = _level(5, 1, 2200, 4, 1.0, True, True)
+    t = [torch.from_numpy(a[0]) for a in (u, strata, valid)]
+    res = torch.tensor([300.0, 0.0, 250.0, 900.0])
+    want = tft_ref.fused_select(*t, res, 4)
+    got = tft.fused_select(*(a.to(cuda_device) for a in t),
+                           res.to(cuda_device), 4)
+    _bits(got.cpu().numpy(), want.numpy())
+
+
+@pytest.mark.cuda
+def test_stratified_stats_kernel_matches_plain(cuda_device):
+    vals, strata, valid, _, _, _ = _level(6, 1, 5000, 32, 0.8, False)
+    t = [torch.from_numpy(a[0]) for a in (vals, strata, valid)]
+    want = tss_ref.stratified_stats(*t, 32).numpy()
+    got = tss.stratified_stats(*(a.to(cuda_device) for a in t),
+                               32).cpu().numpy()
+    _bits(got[:, 0], want[:, 0], "count")
+    np.testing.assert_allclose(got[:, 1:], want[:, 1:], rtol=SUMS_RTOL)
+
+
+@pytest.mark.cuda
+def test_pallas_fused_select_launches_kernel_at_any_size(cuda_device):
+    # Beyond the reference's 1 << 22 one-hot limit the backend still
+    # launches fused_select once, and agrees with the plain version.
+    m, x = 600_000, 8
+    assert m * x > 1 << 22
+    _, strata, valid, u, _, _ = _level(7, 1, m, x, 0.9, False, True)
+    t = [torch.from_numpy(a[0]) for a in (strata, valid, u)]
+    c = torch.bincount(t[0][t[1]].long(), minlength=x).float()
+    res = torch.minimum(c, torch.arange(1, x + 1).float() * 5000.0)
+    want = tft_ref.fused_select(t[2], t[0], t[1], res, x)
+    reset_launches()
+    got = tsamp.get_backend("pallas_fused").select(
+        None, *(a.to(cuda_device) for a in t[:2]), res.to(cuda_device), x,
+        priorities=t[2].to(cuda_device))
+    assert LAUNCHES["fused_select"] == 1
+    _bits(got.cpu().numpy(), want.numpy())
