@@ -5,24 +5,34 @@
 Drives ``src/repro_torch`` only (nothing of JAX or of the JAX package):
 
 1. prints the card (``nvidia-smi`` name and power limit) and builds the
-   CUDA kernels from ``src/repro_torch/csrc`` with ``nvcc`` for sm_90a;
+   CUDA kernels from ``src/repro_torch/csrc`` with ``nvcc`` for sm_90a,
+   one ``nvcc`` per source, all at once;
 2. holds each kernel against its plain PyTorch version on the same
-   inputs — at the paper testbed's shapes and at the kernel's limit
-   (cap 8192, 32 strata), saturated or not, front-packed or not, with
-   ``out_capacity`` below the keep count, with exact f32 priority ties,
-   for the fair, proportional and neyman allocations. Masks, counts,
-   reservoirs, weights, compacted buffers and ``n_keep`` must agree
-   bitwise; ``stratified_stats``' Σx and Σx² within ``SUMS_RTOL``;
+   inputs — the sampler kernels at the paper testbed's shapes and at
+   their limit (cap 8192, 32 strata), saturated or not, front-packed or
+   not, with ``out_capacity`` below the keep count, with exact f32
+   priority ties, for the fair, proportional and neyman allocations;
+   ``cms_update`` at the tenants' shapes and the reference test's;
+   ``quantile_compact`` at every (slots, targets) shape one root window
+   of the tenant path launches and at slot counts that are not a
+   multiple of its tile. Everything agrees bitwise except
+   ``stratified_stats``' Σx and Σx², held to ``SUMS_RTOL``;
 3. runs the paper testbed (fanin 4→2→1, capacity 11008, 4 strata,
    fraction 0.1, ``pallas_fused``) through ``compile``/``init``/
-   ``run_epoch`` on the card for ``EPOCHS`` epochs of ``TICKS`` ticks,
-   checks that every kernel launched as often as the path requires,
-   holds the answers against the same run on the CPU, checks the SUM
-   against the exact sum and its bound, and runs ``mode="srs"`` once;
+   ``run_epoch`` on the card, twice: without tenants for ``EPOCHS``
+   epochs of ``TICKS`` ticks, and with two tenants of standing queries
+   (``k8_registry`` and ``serve_registry``, all eight query kinds) for
+   ``Q_EPOCHS`` epochs. Each run starts from launch counts of 0 and
+   must launch every kernel of its path as often as the path requires.
+   Both are held against the same runs on the CPU; the SUM against the
+   exact sum and its bound; the tenants' quantile answers against the
+   exact quantiles and their rank bounds, and their heavy hitters
+   against the stream's most frequent key. ``mode="srs"`` runs once;
 4. times each kernel at the main path's shapes beside its bound, its
    plain version and (where one exists) one PyTorch call computing the
-   same function, as device time from the profiler's CUDA trace, and
-   times the WHS and SRS epochs;
+   same function, as device time from the profiler's CUDA trace, times
+   the WHS epochs with and without tenants and the SRS epochs, and
+   profiles one epoch of each WHS path;
 5. prints a ``kernels`` JSON line and, last, the ``ok`` JSON line.
 
 It exits non-zero, before printing any result, without a CUDA device or
@@ -41,7 +51,8 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-EPOCHS = 4
+EPOCHS = 2            # tenant-free WHS path
+Q_EPOCHS = 2          # the path with tenants
 TICKS = 16
 SUMS_RTOL = 1e-5        # Σx, Σx²: fixed-order f32 sums vs item-order sums
 ANSWER_RTOL = {         # card vs CPU run of the whole pipeline
@@ -49,6 +60,19 @@ ANSWER_RTOL = {         # card vs CPU run of the whole pipeline
     # s² = (Σx² − Y·mean²)/(Y−1) cancels ~3 digits at the testbed's values
     "sum_var": 1e-3, "mean_var": 1e-3,
 }
+# The tenants' answers and bounds, card vs CPU: the CLT and histogram
+# answers come from the same atomics as "sum"; the bounds are 2·√var of
+# variances held to 1e-3 above, and the sketch bounds divide by sums over
+# the sketch's slots that torch.sum adds in another order on the card.
+# Heavy-hitter keys and estimates, quantile answers and every sketch
+# state leaf must be bitwise.
+QUERY_RTOL = {"answers": 1e-5, "bounds": 1e-3}
+# A quantile answer's rank on the exact stream must lie within its
+# reported (compaction) rank bound plus the sampling error of the root's
+# HT-weighted sample: RANK_SIGMAS·√(q(1−q)/n) for n items kept.
+RANK_SIGMAS = 3.0
+SKETCH_KINDS = ("quantile", "windowed_quantile")
+HH_KINDS = ("heavy_hitters", "decayed_heavy_hitters")
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 # H100 SXM data sheet: f32 outside the tensor cores (the sheet gives no
 # rate for the int32 compares the kernels mostly do).
@@ -60,11 +84,16 @@ REPLACES = {
         "src/repro/kernels/fused_level_tick/fused_level_tick.py:310",
     "stratified_stats":
         "src/repro/kernels/stratified_stats/stratified_stats.py:53",
+    "cms_update": "src/repro/kernels/sketch_update/sketch_update.py:72",
+    "quantile_compact":
+        "src/repro/kernels/sketch_update/sketch_update.py:138",
 }
 SOURCES = {
     "fused_level_tick": "src/repro_torch/csrc/fused_level_tick.cu",
     "fused_select": "src/repro_torch/csrc/fused_level_tick.cu",
     "stratified_stats": "src/repro_torch/csrc/stratified_stats.cu",
+    "cms_update": "src/repro_torch/csrc/sketch_update.cu",
+    "quantile_compact": "src/repro_torch/csrc/sketch_update.cu",
 }
 
 
@@ -213,7 +242,130 @@ def check_kernels(dev) -> dict:
     return err
 
 
+def intervals(rng, p, c):
+    """Value-sorted slots whose shifted-cumsum intervals partition [0, W)
+    (a third of them of zero weight), and ``c`` rank targets, the last
+    at W (no slot holds it)."""
+    v = np.sort(rng.normal(100, 30, p)).astype(np.float32)
+    w = rng.uniform(0.5, 3.0, p).astype(np.float32)
+    w[rng.random(p) < 0.3] = 0.0
+    cumw = np.cumsum(w, dtype=np.float32)
+    prev = np.concatenate([[0.0], cumw[:-1]]).astype(np.float32)
+    t = ((np.arange(c) + rng.random()) * cumw[-1] / c).astype(np.float32)
+    t[-1] = cumw[-1]
+    return [torch.from_numpy(a) for a in (v, prev, cumw, t)]
+
+
+def cms_inputs(rng, m):
+    keys = rng.integers(-2**31, 2**31, m, dtype=np.int64).astype(np.int32)
+    keys[: m // 3] = rng.integers(0, 50, m // 3)    # heavy keys
+    w = rng.uniform(0.1, 40.0, m).astype(np.float32)
+    w[rng.random(m) < 0.2] = 0.0
+    return torch.from_numpy(keys), torch.from_numpy(w)
+
+
+def compact_shapes(plan, m):
+    """The (slots, targets) shape of every ``quantile_compact`` launch of
+    one root window, in launch order, for a tenant plan whose root holds
+    ``m`` items: each fold compacts at every level (slots = the level's
+    ``C`` + what it receives; targets ``C/2``, ``C`` at the top)."""
+    from repro_torch.query.sketches import kll_schedule
+
+    shapes = []
+    for tmpl, n in plan.core.groups:
+        for sp in tmpl.specs * n:
+            if sp.kind not in SKETCH_KINDS:
+                continue
+            c = sp.capacity
+            levels = len(kll_schedule(c))
+            folds = [m] if sp.kind == "quantile" else [m, sp.window * c]
+            for k, extra in enumerate(folds):
+                for h in range(levels):
+                    carry = c // 2 if h else 0
+                    add = extra if (h == 0 or k == 1) else 0
+                    shapes.append((c + carry + add,
+                                   c if h == levels - 1 else c // 2))
+    return shapes
+
+
+def check_sketch_kernels(dev, path_shapes) -> dict:
+    """Phase 2, sketch kernels: ``cms_update`` and ``quantile_compact``
+    against their plain versions, bitwise. Returns the largest absolute
+    difference seen per kernel."""
+    from repro_torch.kernels.sketch_update import ops as sk, ref as sk_ref
+
+    rng = np.random.default_rng(12)
+    err = {"cms_update": 0.0, "quantile_compact": 0.0}
+    for m, depth, width in [(2200, 4, 1024), (2200, 4, 256), (512, 4, 256),
+                            (4096, 2, 1024), (5000, 6, 128),
+                            (32000, 4, 8192)]:
+        k, w = cms_inputs(rng, m)
+        plain = sk_ref.cms_update(k, w, depth, width)
+        card = sk.cms_update(k.to(dev), w.to(dev), depth, width)
+        torch.cuda.synchronize()
+        if not same_bits(plain, card):
+            fail(f"cms_update differs from the plain version at M={m} "
+                 f"depth={depth} width={width}")
+        err["cms_update"] = max(err["cms_update"], max_abs(plain, card))
+    print("cms_update vs plain: (2200, 4, 1024) (2200, 4, 256) "
+          "(512, 4, 256) (4096, 2, 1024) (5000, 6, 128) (32000, 4, 8192): "
+          "bitwise equal")
+    shapes = sorted(set(path_shapes) | {(1025, 300), (3001, 128), (5, 3)})
+    for p, c in shapes:
+        args = intervals(rng, p, c)
+        plain = sk_ref.quantile_compact(*args)
+        card = sk.quantile_compact(*(a.to(dev) for a in args))
+        torch.cuda.synchronize()
+        if not same_bits(plain, card):
+            fail(f"quantile_compact differs from the plain version at "
+                 f"P={p} C={c}")
+        err["quantile_compact"] = max(err["quantile_compact"],
+                                      max_abs(plain, card))
+    print(f"quantile_compact vs plain at (P, C) = {shapes}: bitwise equal")
+    return err
+
+
 # ------------------------------------------------------------ main path --
+def k8_registry(Q):
+    """The K=8 standing-query mix of ``benchmarks/fig8_accuracy.py``
+    (``k8_registry``): sum, count, mean, two histograms, quantiles and a
+    median at capacity 256, heavy hitters k=8 over a 4×1024 table."""
+    return (Q().register_sum().register_count().register_mean()
+            .register_histogram("hist_coarse", 0.0, 120_000.0, 16)
+            .register_histogram("hist_fine", 0.0, 2_000.0, 32)
+            .register_quantile("quantiles", (0.5, 0.9, 0.99), capacity=256)
+            .register_quantile("median", (0.5,), capacity=256)
+            .register_heavy_hitters("heavy", k=8, width=1024, depth=4))
+
+
+def serve_registry(Q, window=4):
+    """The serving dashboard of ``launch/serve.py`` (``serve_registry``):
+    count, sum, mean, quantiles at capacity 256, windowed quantiles at
+    capacity 128 over ``window`` windows, decayed heavy hitters k=4 over
+    a 4×256 table."""
+    return (Q().register_count("requests")
+            .register_sum("latency_total_ms")
+            .register_mean("latency_mean_ms")
+            .register_quantile("latency_q_ms", qs=(0.5, 0.99), capacity=256)
+            .register_windowed_quantile("latency_q_recent_ms",
+                                        qs=(0.5, 0.99), capacity=128,
+                                        window=window)
+            .register_decayed_heavy_hitters("hot_latency_keys", k=4,
+                                            width=256, decay=0.8))
+
+
+def tenant_spec(P):
+    """The testbed with two tenants of different query shapes (two slot
+    groups), all eight query kinds between them."""
+    import dataclasses
+
+    from repro_torch.query import QueryRegistry as Q
+
+    return dataclasses.replace(
+        testbed_spec(P), tenants=(k8_registry(Q).as_tenant("k8"),
+                                  serve_registry(Q).as_tenant("dashboard")))
+
+
 def testbed_spec(P, mode="whs"):
     """The paper's §V testbed job: 8 sources of the four Gaussian
     sub-streams at 1000 items/tick each, fanin 4→2→1, level-0 capacity
@@ -270,6 +422,87 @@ def compare_answers(card, cpu, what):
                      f"relative (> {rtol})")
 
 
+def compare_queries(pipe, card, cpu, card_state, cpu_state):
+    """The tenants' answers and bounds, card vs CPU, and the sketch state:
+    see ``QUERY_RTOL``."""
+    exact_cols = []
+    for o, w, kind in pipe.query_layout().values():
+        if kind in SKETCH_KINDS or kind in HH_KINDS:
+            exact_cols.extend(range(o, o + w))
+    exact_cols = torch.tensor(exact_cols)
+    for wa_k, wa_p in zip(card, cpu):
+        ans_k, ans_p = wa_k.answers.cpu(), wa_p.answers
+        if not torch.isfinite(ans_k).all():
+            fail("tenants: answers are not finite on the card")
+        if not same_bits(ans_k[:, exact_cols], ans_p[:, exact_cols]):
+            fail("tenants: heavy-hitter or quantile answers differ "
+                 "between the card and the CPU")
+        for f, rtol in QUERY_RTOL.items():
+            k, p = getattr(wa_k, f).cpu(), getattr(wa_p, f)
+            if not torch.allclose(k, p, rtol=rtol, atol=0.0):
+                worst = float(((k - p).abs() / p.abs().clamp_min(1e-30))
+                              .max())
+                fail(f"tenants: {f} differ from the CPU run by {worst:.3g} "
+                     f"relative (> {rtol})")
+
+    def leaves(tree):
+        if torch.is_tensor(tree):
+            return [tree]
+        return [x for part in tree for x in leaves(part)]
+
+    k_leaves = leaves(card_state.tree.qstate)
+    p_leaves = leaves(cpu_state.tree.qstate)
+    if len(k_leaves) != len(p_leaves) or not all(
+            same_bits(a, b) for a, b in zip(k_leaves, p_leaves)):
+        fail("tenants: the sketch state (qstate) differs between the card "
+             "and the CPU")
+    return len(k_leaves)
+
+
+def check_accuracy(pipe, answers, batches):
+    """The last window's stream-so-far quantiles, ranked on the exact
+    stream, within their rank bound plus the sampling slack; the exact
+    most frequent ``hh_item_key`` among ``k8``'s heavy hitters."""
+    values = np.concatenate([
+        b.values[t, i, :b.counts[t, i]] for b in batches
+        for t in range(b.values.shape[0]) for i in range(b.values.shape[1])
+    ]).astype(np.float64)
+    rows = [row for wa in answers for row in pipe.rows(wa)]
+    n_kept = sum(row["n_sampled"] for row in rows)
+    last = rows[-1]
+    exact = pipe.plan.exact_answers(values)
+    lay = pipe.query_layout()
+    worst = 0.0
+    quantiles = [(f"{t}/{sp.name}", sp.qs) for t in pipe.tenant_names
+                 for sp in pipe.plan.plan_for(t).specs
+                 if sp.kind == "quantile"]
+    for name, qs in quantiles:
+        o = lay[name][0]
+        for j, target in enumerate(qs):
+            got, bound = float(last["answers"][o + j]), float(
+                last["bounds"][o + j])
+            rank = float((values <= got).mean())
+            slack = RANK_SIGMAS * np.sqrt(target * (1 - target) / n_kept)
+            if abs(rank - target) > bound + slack:
+                fail(f"{name} q={target}: answer {got} has rank {rank:.5f}"
+                     f" on the stream, beyond its bound {bound:.5f} + "
+                     f"slack {slack:.5f} (exact {exact[o + j]:.4f})")
+            worst = max(worst, abs(rank - target) / (bound + slack))
+    keys = np.round(values).astype(np.int64)
+    uniq, cnt = np.unique(keys, return_counts=True)
+    mode = int(uniq[np.argmax(cnt)])
+    o, w, _ = lay["k8/heavy"]
+    found = [int(k) for k in last["answers"][o:o + w // 2]]
+    if mode not in found:
+        fail(f"the stream's most frequent key {mode} is not among k8's "
+             f"heavy hitters {found}")
+    print(f"accuracy on the card: every quantile answer within its rank "
+          f"bound + {RANK_SIGMAS:g}-sigma sampling slack (worst at "
+          f"{worst:.3f} of it, {n_kept} items kept); most frequent key "
+          f"{mode} ({cnt.max()} of {len(values)}) among k8's heavy "
+          f"hitters {found}")
+
+
 def compare_states(card, cpu, what):
     from repro_torch.core.window import TreeState
 
@@ -279,6 +512,47 @@ def compare_states(card, cpu, what):
             if not same_bits(k, p):
                 fail(f"{what}: state {f}[{l}] differs between the card "
                      f"and the CPU")
+
+
+def report_epochs(what, secs, items, cpu_secs):
+    steady = secs[1:] or secs
+    rate = sum(items[1:] or items) / sum(steady)
+    print(f"{what} ({TICKS} ticks): "
+          f"{', '.join(f'{s * 1e3:.1f}' for s in secs)} ms (first includes "
+          f"warm-up); steady {1e3 * sum(steady) / len(steady):.1f} ms, "
+          f"{rate:.4g} items/s on the card; CPU run "
+          f"{1e3 * sum(cpu_secs) / len(cpu_secs):.1f} ms/epoch")
+
+
+def profile_epoch(what, pipe, state, b):
+    """Where a steady epoch's time goes: device time by kernel name from
+    the profiler, and the device's busy share of the wall time (the
+    profiler's own cost inflates the wall time a little)."""
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pipe.run_epoch(state, pipe.default_key, b.values, b.strata, b.counts)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    dev_events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not dev_events:
+        print(f"profiled {what}: the profiler saw no device events; device "
+              f"busy share not measured")
+        return
+    by_name: dict[str, list] = {}
+    for e in dev_events:
+        rec = by_name.setdefault(e.name, [0, 0.0])
+        rec[0] += 1
+        rec[1] += e.time_range.elapsed_us()
+    busy = sum(r[1] for r in by_name.values())
+    print(f"profiled {what} ({TICKS} ticks): wall {wall_us / 1e3:.1f} ms, "
+          f"device busy {busy / 1e3:.2f} ms ({100 * busy / wall_us:.1f}%), "
+          f"{len(dev_events)} device events ({len(dev_events) / TICKS:.0f} "
+          f"per tick)")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
+    for name, (count, us) in top:
+        print(f"  {us / 1e3:8.3f} ms  {count:5d}x  {name[:90]}")
 
 
 def main() -> None:
@@ -291,6 +565,7 @@ def main() -> None:
     from repro_torch.kernels import LAUNCHES, _build, reset_launches
     from repro_torch.kernels.fused_level_tick import ops as ft, ref as ft_ref
     from repro_torch.kernels.stratified_stats import ops as ss, ref as ss_ref
+    from repro_torch.kernels.sketch_update import ops as sk, ref as sk_ref
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -315,7 +590,12 @@ def main() -> None:
                 print(f"  {name}: {line.strip()}")
 
     # 2. Each kernel against its plain version.
+    qspec = tenant_spec(P)
+    qr = P.resolve(qspec)
+    root_m = qr.capacities[-1]
+    path_shapes = compact_shapes(qr.plan, root_m)
     err = check_kernels(dev)
+    err.update(check_sketch_kernels(dev, path_shapes))
     print(f"max abs differences vs plain: {err}")
 
     # 3. The main path on the card, then on the CPU.
@@ -330,12 +610,14 @@ def main() -> None:
     launches = dict(LAUNCHES)
     ticks = EPOCHS * TICKS
     expected = {"fused_level_tick": 2 * ticks, "fused_select": ticks,
-                "stratified_stats": ticks}
-    print(f"launches on the main path: {launches} (expected {expected})")
+                "stratified_stats": ticks, "cms_update": 0,
+                "quantile_compact": 0}
+    print(f"launches on the tenant-free path: {launches} (expected "
+          f"{expected})")
     for name, want in expected.items():
         if launches[name] != want:
-            fail(f"{name} launched {launches[name]} times on the main "
-                 f"path, expected {want}")
+            fail(f"{name} launched {launches[name]} times on the "
+                 f"tenant-free path, expected {want}")
     _, cpu_state, cpu_answers, cpu_secs, _ = run_path(P, spec, "cpu",
                                                       batches)
     compare_answers(answers, cpu_answers, "whs")
@@ -357,6 +639,49 @@ def main() -> None:
           f"{sum(items)} items")
     if abs(approx - exact) > 1.5 * bound:
         fail("SUM outside 3 sigma of the exact sum")
+
+    # The path with tenants: every root window folds the sample into the
+    # sketches (2 cms_update, one quantile_compact per level per fold).
+    print(f"tenants: k8 + dashboard, {qr.plan.n_out} answer slots, "
+          f"{len(qr.plan.core.groups)} slot groups, {Q_EPOCHS} epochs x "
+          f"{TICKS} ticks; quantile_compact shapes per window "
+          f"{path_shapes}")
+    qbatches = make_ingest(S, Q_EPOCHS, qspec.topology.capacity)
+    reset_launches()
+    qpipe, qstate, qanswers, qsecs, qitems = run_path(P, qspec, dev,
+                                                      qbatches)
+    q_launches = dict(LAUNCHES)
+    qticks = Q_EPOCHS * TICKS
+    per_window = {"fused_level_tick": 2, "fused_select": 1,
+                  "stratified_stats": 1, "cms_update": 2,
+                  "quantile_compact": len(path_shapes)}
+    q_expected = {k: v * qticks for k, v in per_window.items()}
+    print(f"launches on the path with tenants: {q_launches} (expected "
+          f"{q_expected}: per root window {per_window})")
+    for name, want in q_expected.items():
+        if q_launches[name] != want:
+            fail(f"{name} launched {q_launches[name]} times on the path "
+                 f"with tenants, expected {want}")
+    _, qcpu_state, qcpu_answers, qcpu_secs, _ = run_path(P, qspec, "cpu",
+                                                         qbatches)
+    compare_answers(qanswers, qcpu_answers, "tenants")
+    compare_states(qstate, qcpu_state, "tenants")
+    n_leaves = compare_queries(qpipe, qanswers, qcpu_answers, qstate,
+                               qcpu_state)
+    print(f"tenants: answers agree with the CPU run (heavy hitters and "
+          f"quantiles bitwise, the rest within {QUERY_RTOL}); all "
+          f"{n_leaves} sketch state leaves bitwise")
+    check_accuracy(qpipe, qanswers, qbatches)
+    qrows = [row for wa in qanswers for row in qpipe.rows(wa)]
+    if len(qrows) != qticks:
+        fail(f"expected {qticks} root windows with tenants, got "
+             f"{len(qrows)}")
+    for tenant, q in (("k8", "quantiles"), ("k8", "heavy"),
+                      ("dashboard", "latency_q_recent_ms"),
+                      ("dashboard", "hot_latency_keys")):
+        print(f"  last window {tenant}/{q}: "
+              f"{qpipe.answer(qrows[-1]['answers'], q, tenant=tenant)} "
+              f"+/- {qpipe.answer(qrows[-1]['bounds'], q, tenant=tenant)}")
 
     srs_spec = testbed_spec(P, mode="srs")
     srs_batches = make_ingest(S, 2, srs_spec.topology.capacity)
@@ -440,10 +765,52 @@ def main() -> None:
                               device_ms(lambda: ss_ref.stratified_stats(
                                   *ss_args), 5),
                               device_ms(library_ss))}
+    # The sketch kernels at one root window's launches: cms_update at
+    # (2200, 4, 1024) and (2200, 4, 256), quantile_compact at each of
+    # ``path_shapes``; ms is the mean per launch over the window.
+    cms_cases = []
+    for width in (1024, 256):
+        k, w = cms_inputs(rng, root_m)
+        k, w = k.to(dev), w.to(dev)
+        flat = (torch.arange(4, device=dev)[:, None] * width
+                + sk_ref.hash_buckets(k, 4, width)).reshape(-1)
+        cms_cases.append((k, w, width, flat, w.expand(4, -1).reshape(-1)))
+    qc_cases = [[a.to(dev) for a in intervals(rng, p, c)]
+                for p, c in path_shapes]
+
+    def cms_all(mod):
+        for k, w, width, _, _ in cms_cases:
+            mod.cms_update(k, w, 4, width)
+
+    def cms_library():
+        for _, _, width, flat, wf in cms_cases:
+            torch.zeros(4 * width, device=dev).index_add_(0, flat, wf)
+
+    def qc_all(mod):
+        for args in qc_cases:
+            mod.quantile_compact(*args)
+
+    def qc_library():
+        # searchsorted + gather: the same function where the intervals
+        # partition [0, W), as the sketch's do.
+        for v, _, cumw, tg in qc_cases:
+            idx = torch.searchsorted(cumw, tg, right=True)
+            torch.where(idx < v.shape[0],
+                        v[idx.clamp_max(v.shape[0] - 1)], 0.0)
+
+    n_cms, n_qc = len(cms_cases), len(qc_cases)
+    t["cms_update"] = (device_ms(lambda: cms_all(sk)) / n_cms,
+                       device_ms(lambda: cms_all(sk_ref), 5) / n_cms,
+                       device_ms(cms_library) / n_cms)
+    t["quantile_compact"] = (device_ms(lambda: qc_all(sk)) / n_qc,
+                             device_ms(lambda: qc_all(sk_ref), 5) / n_qc,
+                             device_ms(qc_library) / n_qc)
     wall = {"fused_level_tick": (loop_ms(lambda: tick(ft, l0))
                                  + loop_ms(lambda: tick(ft, l1))) / 2,
             "fused_select": loop_ms(lambda: ft.fused_select(*sel_args)),
-            "stratified_stats": loop_ms(lambda: ss.stratified_stats(*ss_args))}
+            "stratified_stats": loop_ms(lambda: ss.stratified_stats(*ss_args)),
+            "cms_update": loop_ms(lambda: cms_all(sk)) / n_cms,
+            "quantile_compact": loop_ms(lambda: qc_all(sk)) / n_qc}
     (n0, cap0), (n1, cap1), m = l0[0].shape, l1[0].shape, root[0].shape[1]
     b_l0 = bound(tick_bytes(n0, cap0, 1100, 4), tick_ops(l0))
     b_l1 = bound(tick_bytes(n1, cap1, 1100, 4), tick_ops(l1))
@@ -453,6 +820,17 @@ def main() -> None:
                                     m * select_passes(root_c, root_res, 4)),
               # count, Σx and Σx² (one multiply, two adds) per masked item
               "stratified_stats": bound(m * 9 + 4 * 12, 4 * n_masked)}
+    # cms_update: keys and weights in (8 B per item), the table out; a
+    # multiply, a shift and an add per item and depth row.
+    cms_b = [bound(root_m * 8 + 4 * width * 4, 3 * 4 * root_m)
+             for width in (1024, 256)]
+    # quantile_compact: three f32 per slot and the targets in, one f32 per
+    # target out; two compares per (slot, target) — the membership rule.
+    qc_b = [bound(p * 12 + c * 8, 2 * p * c) for p, c in path_shapes]
+    bounds["cms_update"] = (sum(b[0] for b in cms_b) / n_cms,
+                            max(cms_b)[1])
+    bounds["quantile_compact"] = (sum(b[0] for b in qc_b) / n_qc,
+                                  max(qc_b)[1])
     print(f"fused_level_tick device time per launch: L0 [{n0}, {cap0}] "
           f"{ms_l0:.4f} ms (bound {b_l0[0] * 1e3:.3f} us, {b_l0[1]}), "
           f"L1 [{n1}, {cap1}] {ms_l1:.4f} ms (bound {b_l1[0] * 1e3:.3f} us, "
@@ -461,60 +839,28 @@ def main() -> None:
     print(f"launch floor (1-element add_): device "
           f"{device_ms(lambda: tiny.add_(1.0), 200):.4f} ms, back-to-back "
           f"loop {loop_ms(lambda: tiny.add_(1.0), 200):.4f} ms")
-    per_tick = {"fused_level_tick": 2, "fused_select": 1,
-                "stratified_stats": 1}
+    per_tick = per_window
     for name, (ms, plain_ms, lib_ms) in t.items():
         print(f"{name}: device {ms:.4f} ms/launch (wrapper loop "
               f"{wall[name]:.4f} ms), {per_tick[name]} launch(es) per tick, "
               f"bound {bounds[name][0]:.6f} ms ({bounds[name][1]}), plain "
               f"device {plain_ms:.4f} ms"
-              + (f", index_add_ device {lib_ms:.4f} ms" if lib_ms else ""))
-    steady = secs[1:] or secs
-    ms_epoch = 1e3 * sum(steady) / len(steady)
-    rate = sum(items[1:] or items) / sum(steady)
-    print(f"whs epoch ({TICKS} ticks): {', '.join(f'{s * 1e3:.1f}' for s in secs)}"
-          f" ms (first includes warm-up); steady {ms_epoch:.1f} ms, "
-          f"{rate:.4g} items/s on the card; CPU run "
-          f"{1e3 * sum(cpu_secs) / len(cpu_secs):.1f} ms/epoch")
+              + (f", library device {lib_ms:.4f} ms" if lib_ms else ""))
+    print(f"quantile_compact bounds per launch: "
+          f"{[(pc, round(b[0] * 1e3, 4), b[1]) for pc, b in zip(path_shapes, qc_b)]}"
+          f" (us)")
+    report_epochs("whs epoch", secs, items, cpu_secs)
+    report_epochs("whs epoch with tenants", qsecs, qitems, qcpu_secs)
     srs_rate = srs_items[-1] / srs_secs[-1]
     print(f"srs epoch ({TICKS} ticks): "
           f"{', '.join(f'{s * 1e3:.1f}' for s in srs_secs)} ms (first "
           f"includes warm-up); steady {srs_rate:.4g} items/s on the card")
-
-    # Where a steady WHS epoch's time goes: device time by kernel name
-    # from the profiler, and the device's busy share of the wall time
-    # (the profiler's own cost inflates the wall time a little).
-    b = batches[-1]
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        state, _ = pipe.run_epoch(state, pipe.default_key, b.values,
-                                  b.strata, b.counts)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    dev_events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    if dev_events:
-        by_name: dict[str, list] = {}
-        for e in dev_events:
-            rec = by_name.setdefault(e.name, [0, 0.0])
-            rec[0] += 1
-            rec[1] += e.time_range.elapsed_us()
-        busy = sum(r[1] for r in by_name.values())
-        print(f"profiled whs epoch ({TICKS} ticks): wall {wall_us / 1e3:.1f} "
-              f"ms, device busy {busy / 1e3:.2f} ms "
-              f"({100 * busy / wall_us:.1f}%), {len(dev_events)} device "
-              f"events ({len(dev_events) / TICKS:.0f} per tick)")
-        top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
-        for name, (count, us) in top:
-            print(f"  {us / 1e3:8.3f} ms  {count:5d}x  {name[:90]}")
-    else:
-        print("profiled whs epoch: the profiler saw no device events; "
-              "device busy share not measured")
+    profile_epoch("whs epoch", pipe, state, batches[-1])
+    profile_epoch("whs epoch with tenants", qpipe, qstate, qbatches[-1])
 
     # 5. Result lines.
     kernels = [{"name": name, "route": "cuda", "source": SOURCES[name],
-                "replaces": REPLACES[name], "launches": launches[name],
+                "replaces": REPLACES[name], "launches": q_launches[name],
                 "max_abs_err": err[name], "ms": t[name][0],
                 "plain_ms": t[name][1], "bound_ms": bounds[name][0],
                 "bound_by": bounds[name][1], "library_ms": t[name][2]}

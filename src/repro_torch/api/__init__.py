@@ -10,10 +10,10 @@ from repro_torch.api.pipeline import (CompiledPipeline, PipelineState,
                                       WindowAnswers, compile)
 from repro_torch.api.spec import (BudgetSpec, PipelineSpec, SamplerSpec,
                                   SpecError, StrataSpec, TelemetrySpec,
-                                  TopologySpec, resolve)
+                                  TenantSpec, TopologySpec, resolve)
 
 __all__ = [
     "PipelineSpec", "TopologySpec", "SamplerSpec", "BudgetSpec",
-    "TelemetrySpec", "StrataSpec", "SpecError", "resolve", "compile",
-    "CompiledPipeline", "PipelineState", "WindowAnswers",
+    "TelemetrySpec", "StrataSpec", "TenantSpec", "SpecError", "resolve",
+    "compile", "CompiledPipeline", "PipelineState", "WindowAnswers",
 ]

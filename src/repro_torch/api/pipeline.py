@@ -1,14 +1,21 @@
 """``compile(spec, device=...) → CompiledPipeline`` — the port's runtime.
 
-The counterpart of ``repro.api.pipeline`` for the tenant-free pipeline:
+The counterpart of ``repro.api.pipeline``:
 
-* ``init()`` → ``PipelineState``: every level's buffers on the device
-  plus the next global tick.
+* ``init()`` → ``PipelineState``: every level's buffers and the tenants'
+  sketch state on the device, plus the next global tick.
 * ``run_epoch(state, key, values, strata, counts, budgets)`` →
   ``(state', WindowAnswers)``: ``T`` ticks of the scan engine
   (``core.tree``). The tick counter is read back once per epoch and
   nothing inside the tick loop waits for the device.
 * ``step(...)``: ``run_epoch`` with ``T = 1``.
+* ``QueryRouting`` (``rows``, ``query_layout``, ``answer``,
+  ``tenant_answers``, ``tenant_rel_errors``): per-tenant routing of the
+  standing queries' answers and bounds; ``reset_queries`` empties the
+  sketches.
+
+Not ported yet: ``admit``/``retire`` (tenant churn),
+``program_cache_stats`` and checkpoints.
 
 The pipeline runs on a CUDA device unless ``device="cpu"`` is asked for
 (see ``repro_torch.device``). ``budgets`` are per-level sample sizes,
@@ -40,8 +47,9 @@ class PipelineState(NamedTuple):
 class WindowAnswers(NamedTuple):
     """One epoch's stacked per-window outputs (leading axis = tick).
     ``ok`` masks ticks whose root window flushed items; ``answers`` and
-    ``bounds`` are ``None`` (no standing queries in this port);
-    ``n_forwarded`` is the per-(tick, level) forwarded-item count."""
+    ``bounds`` are the tenants' flat ``[T, n_out]`` vectors (``None``
+    without tenants); ``n_forwarded`` is the per-(tick, level)
+    forwarded-item count."""
 
     tick: Any
     ok: Any
@@ -56,7 +64,93 @@ class WindowAnswers(NamedTuple):
     n_forwarded: Any
 
 
-class CompiledPipeline:
+def _host(x) -> np.ndarray:
+    return x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
+
+
+class QueryRouting:
+    """Per-tenant answer routing and error attribution over the compiled
+    tenant plan (``self.plan``, or ``None``) — the reference's
+    ``QueryRouting``."""
+
+    plan = None
+    tenant_names: tuple = ()
+
+    def rows(self, wa: WindowAnswers) -> list[dict]:
+        """Host-side result rows, one dict per flushed root window, with
+        ``answers`` and ``bounds`` when tenants are registered."""
+        ts, ok, se, sv, me, mv, nsel, hist = (
+            _host(x) for x in
+            (wa.tick, wa.ok, wa.sum, wa.sum_var, wa.mean, wa.mean_var,
+             wa.n_sampled, wa.histogram))
+        ans = _host(wa.answers) if wa.answers is not None else None
+        bnd = _host(wa.bounds) if wa.bounds is not None else None
+        out = []
+        for i in range(len(ts)):
+            if not ok[i]:
+                continue
+            row = dict(tick=int(ts[i]), sum=float(se[i]),
+                       sum_var=float(sv[i]), mean=float(me[i]),
+                       mean_var=float(mv[i]), n_sampled=int(nsel[i]),
+                       histogram=hist[i])
+            if ans is not None:
+                row["answers"], row["bounds"] = ans[i], bnd[i]
+            out.append(row)
+        return out
+
+    def query_layout(self, tenant: str | None = None) -> dict:
+        """name → (offset, width, kind) into the flat answer vector.
+        With several tenants names are ``"tenant/query"``; pass
+        ``tenant=`` for one tenant's block with local names and absolute
+        offsets."""
+        if self.plan is None:
+            raise SpecError("this pipeline registers no query tenants")
+        if tenant is None:
+            return self.plan.layout()
+        if len(self.tenant_names) == 1:
+            if tenant != self.tenant_names[0]:
+                raise KeyError(f"unknown tenant {tenant!r}; registered: "
+                               f"{list(self.tenant_names)}")
+            return self.plan.layout()
+        base, _ = self.plan.tenant_slice(tenant)
+        return {q: (base + o, w, kind) for q, (o, w, kind)
+                in self.plan.plan_for(tenant).layout().items()}
+
+    def answer(self, vec, name: str, tenant: str | None = None):
+        """Slice one query's answers out of a flat vector (array or
+        tensor); with several tenants pass ``tenant=`` or a
+        ``"tenant/query"`` name."""
+        lay = self.query_layout(tenant)
+        if name not in lay:
+            raise KeyError(f"unknown query {name!r}; available: "
+                           f"{sorted(lay)}")
+        o, w, _ = lay[name]
+        return _host(vec)[..., o:o + w]
+
+    def tenant_answers(self, vec, tenant: str):
+        """One tenant's block of a flat answers/bounds vector."""
+        if self.plan is None:
+            raise SpecError("this pipeline registers no query tenants")
+        if len(self.tenant_names) == 1:
+            if tenant != self.tenant_names[0]:
+                raise KeyError(f"unknown tenant {tenant!r}; registered: "
+                               f"{list(self.tenant_names)}")
+            return _host(vec)[..., :self.plan.n_out]
+        o, w = self.plan.tenant_slice(tenant)
+        return _host(vec)[..., o:o + w]
+
+    def tenant_rel_errors(self, answers_row, bounds_row) -> dict[str, float]:
+        """Per-tenant measured relative error of one window (see
+        ``query.compiler.tenant_rel_errors``)."""
+        from repro_torch.query.compiler import tenant_rel_errors
+
+        if self.plan is None:
+            return {}
+        return tenant_rel_errors(self.plan, answers_row, bounds_row,
+                                 default_tenant=self.tenant_names[0])
+
+
+class CompiledPipeline(QueryRouting):
     """One ``PipelineSpec`` bound to one device (see the module doc)."""
 
     def __init__(self, spec: PipelineSpec, device: torch.device):
@@ -73,13 +167,18 @@ class CompiledPipeline:
         self.interval_ticks = list(r.interval_ticks)
         self.telemetry_enabled = spec.telemetry.enabled
         self.route_keys = spec.strata.num_keys
+        self.plan = r.plan
+        self.tenant_names = tuple(t.name for t in spec.tenants)
+        self._traced_plan = r.plan.core if r.plan is not None else None
         self._tick_fn = T._build_scan_tick(
             self.fanin, self.capacities, self.max_sample_sizes,
             self.interval_ticks, self.num_strata, spec.sampler.allocation,
             spec.sampler.backend, spec.sampler.mode, r.p_level,
-            spec.sampler.fraction, device, telemetry=self.telemetry_enabled)
+            spec.sampler.fraction, device, telemetry=self.telemetry_enabled,
+            plan=self._traced_plan)
         self._epoch_fn = T._build_epoch_fn(self._tick_fn, self.fanin,
-                                           self.capacities)
+                                           self.capacities,
+                                           plan=self._traced_plan)
 
     @property
     def default_key(self) -> torch.Tensor:
@@ -87,22 +186,27 @@ class CompiledPipeline:
         return prng.PRNGKey(self.spec.seed, device=self.device)
 
     def init(self, key=None) -> PipelineState:
-        """Fresh state: empty buffers, identity metadata, tick 1. ``key``
-        is accepted for symmetry with the reference (initialisation is
-        deterministic)."""
+        """Fresh state: empty buffers, identity metadata, empty sketches,
+        tick 1. ``key`` is accepted for symmetry with the reference
+        (initialisation is deterministic)."""
         del key
         tel = ()
         if self.telemetry_enabled:
             from repro_torch.obs.telemetry import EpochTelemetry
 
-            tel = EpochTelemetry.create(len(self.fanin), self.num_strata, 0,
-                                        device=self.device)
+            tel = EpochTelemetry.create(
+                len(self.fanin), self.num_strata,
+                self._traced_plan.n_out if self._traced_plan is not None else 0,
+                device=self.device)
         route = ()
         if self.route_keys:
             route = (torch.arange(self.route_keys, dtype=torch.int32,
                                   device=self.device) % self.num_strata)
+        qstate = (self.plan.init_state(self.device)
+                  if self.plan is not None else ())
         st = TreeState.create(self.fanin, self.capacities, self.num_strata,
-                              device=self.device, telemetry=tel, route=route)
+                              device=self.device, qstate=qstate,
+                              telemetry=tel, route=route)
         return PipelineState(tree=st, tick=torch.tensor(
             1, dtype=torch.int32, device=self.device))
 
@@ -150,10 +254,17 @@ class CompiledPipeline:
         t0 = int(state.tick)  # the one host read of the epoch
         tree, outs = self._epoch_fn(state.tree, key, t0, b, values, strata,
                                     counts)
-        ts, ok, se, sv, me, mv, nsel, hist, n_fwd = outs
+        if self.plan is not None:
+            ts, ok, se, sv, me, mv, nsel, hist, ans, bnd, n_fwd = outs
+            # The core answers the padded slot vector; the public vector
+            # is the live tenants' blocks.
+            ans, bnd = self.plan.compact(ans), self.plan.compact(bnd)
+        else:
+            ts, ok, se, sv, me, mv, nsel, hist, n_fwd = outs
+            ans = bnd = None
         wa = WindowAnswers(tick=ts, ok=ok, sum=se, sum_var=sv, mean=me,
                            mean_var=mv, n_sampled=nsel, histogram=hist,
-                           answers=None, bounds=None, n_forwarded=n_fwd)
+                           answers=ans, bounds=bnd, n_forwarded=n_fwd)
         return PipelineState(tree=tree, tick=state.tick + epoch_ticks), wa
 
     def step(self, state: PipelineState, key, values, strata, counts,
@@ -163,17 +274,13 @@ class CompiledPipeline:
                               torch.as_tensor(strata)[None],
                               torch.as_tensor(counts)[None], budgets)
 
-    def rows(self, wa: WindowAnswers) -> list[dict]:
-        """Host-side result rows, one dict per flushed root window."""
-        ts, ok, se, sv, me, mv, nsel, hist = (
-            np.asarray(x.detach().cpu()) for x in
-            (wa.tick, wa.ok, wa.sum, wa.sum_var, wa.mean, wa.mean_var,
-             wa.n_sampled, wa.histogram))
-        return [dict(tick=int(ts[i]), sum=float(se[i]),
-                     sum_var=float(sv[i]), mean=float(me[i]),
-                     mean_var=float(mv[i]), n_sampled=int(nsel[i]),
-                     histogram=hist[i])
-                for i in range(len(ts)) if ok[i]]
+    def reset_queries(self, state: PipelineState) -> PipelineState:
+        """Empty the standing queries' sketch state (called after a
+        warm-up, the answers cover only the measured ticks)."""
+        if self.plan is None:
+            return state
+        return state._replace(tree=state.tree._replace(
+            qstate=self.plan.init_state(self.device)))
 
 
 def compile(spec: PipelineSpec, *, device="cuda") -> CompiledPipeline:

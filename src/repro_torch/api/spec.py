@@ -8,15 +8,19 @@ turns it into an ``init``/``run_epoch`` pipeline; :func:`resolve` derives
 every runtime quantity with the reference's formulas, so one spec drives
 both packages to the same buffers and budgets.
 
+The standing-query plane is a list of per-**tenant** query registries
+(``TenantSpec``); :func:`resolve` compiles them into one slotted plan.
 ``to_dict()``/``from_dict()`` round-trip the spec through plain JSON
-types and read the reference's ``PipelineSpec.to_dict()``. Standing-query
-tenants are not ported yet: a spec that registers any raises
-``SpecError``.
+types and read the reference's ``PipelineSpec.to_dict()``, tenants
+included.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import NamedTuple
+
+from repro_torch.query.registry import QuerySpec
+
 
 class SpecError(ValueError):
     """A pipeline spec that cannot be compiled, with a pointer to the
@@ -147,6 +151,41 @@ class BudgetSpec:
 
 
 @dataclasses.dataclass(frozen=True)
+class TenantSpec:
+    """One tenant's standing-query registry. Every tenant's queries are
+    answered from the same shared tree (one root evaluation per window),
+    with per-tenant answer routing and error attribution."""
+
+    name: str
+    queries: tuple = ()
+
+    def __post_init__(self):
+        _require(bool(self.name) and isinstance(self.name, str),
+                 f"tenant name must be a non-empty string, got {self.name!r}")
+        _require("/" not in self.name,
+                 f"tenant name {self.name!r} may not contain '/' (reserved "
+                 f"for tenant/query answer routing)")
+        qs = tuple(self.queries)
+        _require(len(qs) >= 1,
+                 f"tenant {self.name!r} registers no queries — drop the "
+                 f"tenant or add QuerySpecs")
+        for q in qs:
+            _require(isinstance(q, QuerySpec),
+                     f"tenant {self.name!r}: queries must be QuerySpec "
+                     f"instances, got {type(q).__name__}")
+        names = [q.name for q in qs]
+        _require(len(set(names)) == len(names),
+                 f"tenant {self.name!r} has duplicate query names: "
+                 f"{sorted(n for n in names if names.count(n) > 1)}")
+        object.__setattr__(self, "queries", qs)
+
+    @classmethod
+    def from_registry(cls, name: str, registry) -> "TenantSpec":
+        """Wrap a ``repro_torch.query.QueryRegistry`` as one tenant."""
+        return cls(name=name, queries=tuple(registry.specs))
+
+
+@dataclasses.dataclass(frozen=True)
 class TelemetrySpec:
     """The in-graph observability plane (``repro_torch.obs``).
 
@@ -201,8 +240,7 @@ class StrataSpec:
 
 @dataclasses.dataclass(frozen=True)
 class PipelineSpec:
-    """The whole job: topology × sampler × budget policy. ``tenants``
-    stays in the layout the reference serializes and must be empty."""
+    """The whole job: topology × sampler × tenants × budget policy."""
 
     topology: TopologySpec = dataclasses.field(default_factory=TopologySpec)
     sampler: SamplerSpec = dataclasses.field(default_factory=SamplerSpec)
@@ -215,10 +253,13 @@ class PipelineSpec:
 
     def __post_init__(self):
         object.__setattr__(self, "tenants", tuple(self.tenants))
-        _require(not self.tenants,
-                 "query plane not ported yet: repro_torch runs the "
-                 "tenant-free pipeline (the built-in SUM/MEAN/histogram "
-                 "workload); drop the tenants")
+        for t in self.tenants:
+            _require(isinstance(t, TenantSpec),
+                     f"tenants must be TenantSpec instances, got "
+                     f"{type(t).__name__}")
+        names = [t.name for t in self.tenants]
+        dups = sorted({n for n in names if names.count(n) > 1})
+        _require(not dups, f"duplicate tenant names: {dups}")
         _require(isinstance(self.telemetry, TelemetrySpec),
                  f"telemetry must be a TelemetrySpec, got "
                  f"{type(self.telemetry).__name__}")
@@ -272,7 +313,23 @@ class PipelineSpec:
         tenants = d.pop("tenants", [])
         _require(isinstance(tenants, (list, tuple)),
                  f"tenants must be a list, got {type(tenants).__name__}")
-        kwargs["tenants"] = tuple(tenants)
+        built = []
+        for i, t in enumerate(tenants):
+            _require(isinstance(t, dict),
+                     f"tenants[{i}] must be a dict, got {type(t).__name__}")
+            t = dict(t)
+            queries = t.pop("queries", [])
+            qspecs = []
+            for j, q in enumerate(queries):
+                _require(isinstance(q, dict),
+                         f"tenants[{i}].queries[{j}] must be a dict, got "
+                         f"{type(q).__name__}")
+                qspecs.append(_build_section(
+                    f"tenants[{i}].queries[{j}]", QuerySpec,
+                    {**q, "qs": tuple(q.get("qs", ()))}))
+            built.append(_build_section(f"tenants[{i}]", TenantSpec,
+                                        {**t, "queries": tuple(qspecs)}))
+        kwargs["tenants"] = tuple(built)
         if "seed" in d:
             kwargs["seed"] = d.pop("seed")
         _require(not d, f"unknown pipeline spec keys: {sorted(d)} "
@@ -332,13 +389,27 @@ def derive_sample_sizes(spec: PipelineSpec) -> tuple[tuple, tuple]:
 class ResolvedPipeline(NamedTuple):
     """Everything the runtime needs, derived once from the spec: applied
     and ceiling per-level budgets, effective intervals, per-level buffer
-    capacities and the SRS per-level keep probability."""
+    capacities, the SRS per-level keep probability and the compiled
+    tenant plan (``None`` without tenants)."""
 
     sample_sizes: tuple
     max_sample_sizes: tuple
     interval_ticks: tuple
     capacities: tuple
     p_level: float
+    plan: object   # query.compiler.SlottedTenantPlan | None
+
+
+def build_plan(spec: PipelineSpec):
+    """Compile the tenants' registries into a ``SlottedTenantPlan``
+    (``None`` without tenants): tenants group by name-free shape
+    signature, each group padded to its slot bucket."""
+    if not spec.tenants:
+        return None
+    from repro_torch.query.compiler import build_slotted_plan
+
+    return build_slotted_plan([(t.name, t.queries) for t in spec.tenants],
+                              spec.topology.num_strata)
 
 
 def resolve(spec: PipelineSpec) -> ResolvedPipeline:
@@ -355,7 +426,7 @@ def resolve(spec: PipelineSpec) -> ResolvedPipeline:
                if spec.sampler.fraction is not None else 1.0)
     return ResolvedPipeline(sample_sizes=sizes, max_sample_sizes=max_sizes,
                             interval_ticks=iv, capacities=capacities,
-                            p_level=p_level)
+                            p_level=p_level, plan=build_plan(spec))
 
 
 def validate(spec: PipelineSpec) -> None:
@@ -366,6 +437,9 @@ def validate(spec: PipelineSpec) -> None:
         _require(samp.fraction is not None,
                  "sampler.mode='srs' needs sampler.fraction (the coin-flip "
                  "keep rate is derived from the end-to-end fraction)")
+        _require(not spec.tenants,
+                 "query tenants need WHS stratum metadata: use "
+                 "sampler.mode='whs' or drop the tenants")
         _require(budget.target_rel_error is None,
                  "the error-budget controller drives WHS sample budgets: "
                  "use sampler.mode='whs' or drop budget.target_rel_error")
@@ -400,3 +474,22 @@ def validate(spec: PipelineSpec) -> None:
                      f"level-{lvl} sample budget {s} exceeds the level-"
                      f"{lvl} buffer capacity {cap} — raise "
                      f"topology.capacity or lower the budgets")
+    # Error-budget feasibility: a quantile sketch's rank-error floor is set
+    # by its capacity, so no sample budget can push its bound below it; a
+    # target under that floor could never be met.
+    if budget.target_rel_error is not None:
+        from repro_torch.query.sketches import quantile_rank_error_bound
+
+        target = float(budget.target_rel_error)
+        for t in spec.tenants:
+            for q in t.queries:
+                if q.kind not in ("quantile", "windowed_quantile"):
+                    continue
+                floor = quantile_rank_error_bound(q.capacity)
+                _require(floor <= target,
+                         f"tenant {t.name!r} query {q.name!r}: a capacity-"
+                         f"{q.capacity} quantile sketch bottoms out at rank "
+                         f"error {floor:.4f} over the planning horizon — "
+                         f"above budget.target_rel_error={target}; the "
+                         f"error-budget controller could never settle. "
+                         f"Raise the sketch capacity or relax the target.")

@@ -64,10 +64,16 @@ def approx_mean(value, stratum, selected, meta: StratumMeta,
     return approx_mean_from_moments(y, s1, s2, meta)
 
 
-def approx_mean_from_moments(y, s1, s2, meta: StratumMeta) -> QueryResult:
+def approx_mean_from_moments(y, s1, s2, meta: StratumMeta,
+                             ht_total=None) -> QueryResult:
+    """``ht_total`` is ``Σ_i Y_i·W_i`` when the caller has it; by default
+    it is taken with one FMA per stratum, as the reference's compiled
+    code takes it where no other query shares the product."""
     s_sq = sample_variance(y, s1, s2)
     c_src = y * meta.weight
-    total = torch.clamp_min(fma_dot(y, meta.weight), 1.0)[..., None]
+    if ht_total is None:
+        ht_total = fma_dot(y, meta.weight)
+    total = torch.clamp_min(ht_total, 1.0)[..., None]
     phi = c_src / total
     mean_per = s1 / torch.clamp_min(y, 1.0)
     est = fma_dot(phi, mean_per)

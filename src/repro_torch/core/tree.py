@@ -8,7 +8,10 @@ here; nothing inside it reads a device value back to the host (the tick
 counter is read once per epoch by the caller, so interval gates are
 host integers). An epoch draws all its priorities up front: one batched
 threefry pass per level over ``[T, nodes, capacity]``, bitwise the
-draws the reference makes tick by tick from the same keys.
+draws the reference makes tick by tick from the same keys; the tenant
+plan's sketch uniforms are drawn the same way, from the root's keys.
+With a plan, the root also answers every tenant's standing queries from
+the window sample, its sketch state carried in ``TreeState.qstate``.
 """
 from __future__ import annotations
 
@@ -122,9 +125,13 @@ def _histogram_edges(values, selected, hist_bins: int):
 # --------------------------------------------------------------------------
 def _whs_root_core(values, strata, valid, w_in, c_in, sample_size,
                    priorities, *, num_strata, allocation, backend, budget,
-                   hist_bins=64, telemetry=False):
+                   hist_bins=64, plan=None, qstate=(), draws=None,
+                   telemetry=False):
     """Root = sampling + the paper's query workload: windowed SUM and MEAN
-    with CLT bounds and a value histogram (§III-A lines 16-20)."""
+    with CLT bounds and a value histogram (§III-A lines 16-20). ``plan``
+    (a tenant plan, with this window's ``draws``) adds every standing
+    query's answers and bounds from the same sample; it draws nothing
+    from the sampler's stream. Returns ``(outs, qstate')``."""
     batch = IntervalBatch(values, strata, valid, StratumMeta(w_in, c_in))
     res = whs.whsamp(None, batch, sample_size, num_strata,
                      allocation=allocation, backend=backend,
@@ -135,9 +142,13 @@ def _whs_root_core(values, strata, valid, w_in, c_in, sample_size,
     h = queries.weighted_histogram(batch, res, num_strata, edges)
     outs = (s.estimate, s.variance, m.estimate, m.variance,
             res.selected.sum(dtype=torch.int32), h.estimate)
+    qstate2 = qstate
+    if plan is not None:
+        qstate2, answers, bounds = plan.evaluate(draws, batch, res, qstate)
+        outs = outs + (answers, bounds)
     if telemetry:
         outs = outs + (res.c.float(), res.y.float())
-    return outs
+    return outs, qstate2
 
 
 def _srs_root_core(values, strata, valid, p_keep, f_total, priorities, *,
@@ -253,9 +264,10 @@ def _flush_meta(wc_acc, c_acc, seen, w_in, c_in):
 
 def _build_scan_tick(fanin, capacities, sample_sizes, interval_ticks,
                      num_strata, allocation, backend, mode, p_level,
-                     fraction, device, telemetry=False, hist_bins=64):
+                     fraction, device, telemetry=False, hist_bins=64,
+                     plan=None):
     """The fused whole-tree tick: ``(state, t, budgets, ing_v, ing_s,
-    ing_n, priorities) → (state', per-tick outputs)``.
+    ing_n, priorities, draws) → (state', per-tick outputs)``.
 
     Levels chain as in the reference: level ``l``'s packed forwards are
     appended to level ``l+1`` before level ``l+1`` flushes, so one tick
@@ -264,6 +276,8 @@ def _build_scan_tick(fanin, capacities, sample_sizes, interval_ticks,
     ``sample_sizes`` are the static per-level ceilings (they size the
     forwarding buffers); ``budgets`` f32[n_levels] on the device are the
     budgets applied. ``priorities`` holds one f32 ``[n, cap]`` per level.
+    ``plan`` is the tenant plan's traced core (or ``None``); ``draws``
+    is its sketch uniforms for this tick's root key.
     """
     n_levels = len(fanin)
     child_tables = [torch.as_tensor(_child_routing(fanin[l], fanin[l + 1]),
@@ -277,7 +291,7 @@ def _build_scan_tick(fanin, capacities, sample_sizes, interval_ticks,
         return torch.zeros(shape, dtype=torch.float32, device=device)
 
     def tick(state: TreeState, t: int, budgets, ing_v, ing_s, ing_n,
-             priorities):
+             priorities, draws=None):
         lv = {f: list(getattr(state, f)) for f in TreeState.LEVEL_FIELDS}
         if not isinstance(state.route, tuple):
             ing_s = state.route[ing_s.to(torch.int64)
@@ -291,6 +305,7 @@ def _build_scan_tick(fanin, capacities, sample_sizes, interval_ticks,
 
         n_fwd_levels, tel_in, tel_kept = [], [], []
         root_out = root_strat = None
+        q_out = state.qstate
         for l in range(n_levels):
             iv = int(interval_ticks[l])
             is_root = l == n_levels - 1
@@ -308,6 +323,8 @@ def _build_scan_tick(fanin, capacities, sample_sizes, interval_ticks,
                                 torch.zeros((), dtype=torch.int32,
                                             device=device),
                                 f32_zero((hist_bins,)))
+                    if plan is not None:
+                        root_out = root_out + (f32_zero((plan.n_out,)),) * 2
                     if telemetry and mode != "srs":
                         root_strat = (f32_zero((num_strata,)),) * 2
                     if telemetry:
@@ -333,11 +350,12 @@ def _build_scan_tick(fanin, capacities, sample_sizes, interval_ticks,
                         values[0], strata[0], valid[0], p_keep, f_total,
                         prio[0], num_strata=num_strata, hist_bins=hist_bins)
                 else:
-                    outs = _whs_root_core(
+                    outs, q_out = _whs_root_core(
                         values[0], strata[0], valid[0], w_eff[0], c_eff[0],
                         budgets[l], prio[0], num_strata=num_strata,
                         allocation=allocation, backend=backend,
                         budget=int(sample_sizes[l]), hist_bins=hist_bins,
+                        plan=plan, qstate=state.qstate, draws=draws,
                         telemetry=telemetry)
                     if telemetry:
                         root_strat, outs = outs[-2:], outs[:-2]
@@ -403,10 +421,16 @@ def _build_scan_tick(fanin, capacities, sample_sizes, interval_ticks,
                 new_tel = new_tel._replace(
                     stratum_in=new_tel.stratum_in + root_strat[0],
                     stratum_kept=new_tel.stratum_kept + root_strat[1])
+            if plan is not None:
+                ans, bnd = root_out[7], root_out[8]
+                rel = bnd / torch.clamp_min(ans.abs(), 1e-9)
+                new_tel = new_tel._replace(
+                    slot_rel_bound_sum=new_tel.slot_rel_bound_sum
+                    + torch.where(root_ok, rel, 0.0))
 
         new_state = TreeState(
             **{f: tuple(lv[f]) for f in TreeState.LEVEL_FIELDS},
-            qstate=(), telemetry=new_tel, route=state.route)
+            qstate=q_out, telemetry=new_tel, route=state.route)
         n_fwd = (torch.stack(n_fwd_levels) if n_fwd_levels else
                  torch.zeros((0,), dtype=torch.int32, device=device))
         return new_state, root_out + (n_fwd,)
@@ -414,10 +438,13 @@ def _build_scan_tick(fanin, capacities, sample_sizes, interval_ticks,
     return tick
 
 
-def _build_epoch_fn(tick_fn, fanin, capacities):
+def _build_epoch_fn(tick_fn, fanin, capacities, plan=None):
     """An epoch: ``(state, key, t0, budgets, ing_v, ing_s, ing_n) →
     (state', (ticks, *stacked per-tick outputs))``. ``t0`` is the host
-    value of the first tick; ingest is ``[T, fanin[0], width]``."""
+    value of the first tick; ingest is ``[T, fanin[0], width]``. The
+    priorities of every level and the ``plan``'s sketch uniforms (from
+    the root node's key at each tick) are drawn for the whole epoch up
+    front."""
 
     def epoch(state: TreeState, key, t0: int, budgets, ing_v, ing_s, ing_n):
         epoch_ticks = ing_v.shape[0]
@@ -425,10 +452,16 @@ def _build_epoch_fn(tick_fn, fanin, capacities):
                           device=ing_v.device) + t0
         prio = [epoch_priorities(key, ts, l, fanin[l], capacities[l])
                 for l in range(len(fanin))]
+        draws = None
+        if plan is not None:
+            draws = plan.draws(_node_key(key, ts, len(fanin) - 1, 0))
         rows = []
         for i in range(epoch_ticks):
-            state, out = tick_fn(state, t0 + i, budgets, ing_v[i], ing_s[i],
-                                 ing_n[i], [p[i] for p in prio])
+            state, out = tick_fn(
+                state, t0 + i, budgets, ing_v[i], ing_s[i], ing_n[i],
+                [p[i] for p in prio],
+                None if draws is None else
+                tuple(None if d is None else d[i] for d in draws))
             rows.append(out)
         stacked = tuple(torch.stack(col) for col in zip(*rows))
         return state, (ts.to(torch.int32),) + stacked

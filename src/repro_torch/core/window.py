@@ -25,8 +25,8 @@ class TreeState(NamedTuple):
     ``wc_acc``/``c_acc``   f32 ``[n, X]`` — this interval's Σw·C and ΣC.
     ``seen``               bool ``[n, X]`` — strata with fresh metadata.
 
-    ``qstate`` is the query plane's sketch state, ``()`` in this port
-    (no tenants). ``telemetry`` is an ``obs.telemetry.EpochTelemetry`` or
+    ``qstate`` is the query plane's sketch state (the tenant plan's
+    ``init_state``), ``()`` without tenants. ``telemetry`` is an ``obs.telemetry.EpochTelemetry`` or
     ``()``; ``route`` an i32 ``[num_keys]`` key→stratum table or ``()``.
     """
 
@@ -48,7 +48,8 @@ class TreeState(NamedTuple):
 
     @staticmethod
     def create(fanin, capacities, num_strata: int, *, device=None,
-               telemetry: tuple = (), route: tuple = ()) -> "TreeState":
+               qstate: tuple = (), telemetry: tuple = (),
+               route: tuple = ()) -> "TreeState":
         """Fresh state: empty buffers, identity metadata (W = 1, C = 0)."""
         x = num_strata
 
@@ -68,4 +69,4 @@ class TreeState(NamedTuple):
             wc_acc=tuple(zeros((n, x), torch.float32) for n in fanin),
             c_acc=tuple(zeros((n, x), torch.float32) for n in fanin),
             seen=tuple(zeros((n, x), torch.bool) for n in fanin),
-            qstate=(), telemetry=telemetry, route=route)
+            qstate=qstate, telemetry=telemetry, route=route)

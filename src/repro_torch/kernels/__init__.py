@@ -12,6 +12,8 @@ LAUNCHES: dict[str, int] = {
     "fused_level_tick": 0,
     "fused_select": 0,
     "stratified_stats": 0,
+    "cms_update": 0,
+    "quantile_compact": 0,
 }
 
 

@@ -5,8 +5,9 @@ The counterpart of the ``EpochTelemetry`` leaf of
 quantities it computes anyway (flush sizes, forwarded counts, the root
 sampler's per-stratum ``c``/``y``), draws no randomness, and so leaves
 samples and answers bitwise the same with telemetry on or off.
-``snapshot`` reads them back with the derived signals. The tenant-slot
-and straggler parts of the reference are not ported yet.
+``snapshot`` reads them back with the derived signals. The per-tenant
+bound attribution (``tenant_rel_bounds``) and the straggler parts of the
+reference are not ported yet.
 """
 from __future__ import annotations
 
@@ -27,9 +28,12 @@ class EpochTelemetry(NamedTuple):
     ``windows`` i32[] — flushed root windows.
     ``root_sum``/``root_sum_var`` f32[] — Σ window SUM estimates and
         variances; ``2·√(Σ var)`` is the realized ±2σ bound.
-    ``slot_rel_bound_sum`` f32[n_slots], ``merge_bytes`` f32[],
-    ``late_shards``/``widened_windows`` i32[] — the query-plane, mesh and
-        straggler counters; zero in this port.
+    ``slot_rel_bound_sum`` f32[n_slots] — Σ over flushed windows of each
+        slot's relative bound ``bound/max(|answer|, 1e-9)``, one slot per
+        column of the tenant plan's padded answer vector (``n_out`` of its
+        core; empty without tenants).
+    ``merge_bytes`` f32[], ``late_shards``/``widened_windows`` i32[] — the
+        mesh and straggler counters; zero in this port.
     """
 
     items_in: Any

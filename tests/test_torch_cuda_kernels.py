@@ -9,6 +9,9 @@ it also runs on a machine that has only the port:
 Masks, counts, reservoirs, weights, compacted buffers and ``n_keep``
 are compared bitwise; ``stratified_stats``' Σx and Σx² within
 ``SUMS_RTOL`` (a fixed-order block reduction against item order).
+``cms_update`` and ``quantile_compact`` are compared bitwise, and the
+sketches that call them (``hh_update``, ``quantile_update``) launch them
+as often as their design says.
 """
 import numpy as np
 import pytest
@@ -21,6 +24,9 @@ from repro_torch.kernels.fused_level_tick import ops as tft  # noqa: E402
 from repro_torch.kernels.fused_level_tick import ref as tft_ref  # noqa: E402
 from repro_torch.kernels.stratified_stats import ops as tss  # noqa: E402
 from repro_torch.kernels.stratified_stats import ref as tss_ref  # noqa: E402
+from repro_torch.kernels.sketch_update import ops as tsk  # noqa: E402
+from repro_torch.kernels.sketch_update import ref as tsk_ref  # noqa: E402
+from repro_torch.query import sketches as tsketch  # noqa: E402
 
 NAMES = ("keep", "values_c", "strata_c", "n_keep", "c", "reservoirs", "y",
          "w_out", "c_out")
@@ -135,3 +141,67 @@ def test_pallas_fused_select_launches_kernel_at_any_size(cuda_device):
         priorities=t[2].to(cuda_device))
     assert LAUNCHES["fused_select"] == 1
     _bits(got.cpu().numpy(), want.numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,depth,width", [(2200, 4, 1024), (2200, 4, 256),
+                                           (512, 4, 256), (4096, 2, 1024),
+                                           (5000, 6, 128), (3000, 3, 4096),
+                                           (0, 2, 64), (77, 1, 1)])
+def test_cms_update_kernel_matches_plain(cuda_device, m, depth, width):
+    rng = np.random.default_rng(m + width)
+    keys = rng.integers(-2**31, 2**31, m, dtype=np.int64).astype(np.int32)
+    keys[: m // 3] = 42                     # one heavy key
+    w = rng.uniform(0.1, 40.0, m).astype(np.float32)
+    w[rng.random(m) < 0.2] = 0.0
+    k, wt = torch.from_numpy(keys), torch.from_numpy(w)
+    want = tsk_ref.cms_update(k, wt, depth, width)
+    got = tsk.cms_update(k.to(cuda_device), wt.to(cuda_device), depth,
+                         width)
+    _bits(got.cpu().numpy(), want.numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p,c", [(2456, 128), (384, 128), (2328, 64),
+                                 (704, 64), (1500, 256), (1025, 300),
+                                 (5, 3)])
+def test_quantile_compact_kernel_matches_plain(cuda_device, p, c):
+    rng = np.random.default_rng(p + c)
+    v = np.sort(rng.normal(100, 30, p)).astype(np.float32)
+    wt = rng.uniform(0.5, 3.0, p).astype(np.float32)
+    wt[rng.random(p) < 0.3] = 0.0
+    cumw = np.cumsum(wt, dtype=np.float32)
+    prev = np.concatenate([[0.0], cumw[:-1]]).astype(np.float32)
+    t = ((np.arange(c) + rng.random()) * cumw[-1] / c).astype(np.float32)
+    t[-1] = cumw[-1]                        # at the total: no slot
+    args = [torch.from_numpy(a) for a in (v, prev, cumw, t)]
+    want = tsk_ref.quantile_compact(*args)
+    got = tsk.quantile_compact(*(a.to(cuda_device) for a in args))
+    _bits(got.cpu().numpy(), want.numpy())
+    assert float(got[-1]) == 0.0
+
+
+@pytest.mark.cuda
+def test_sketch_updates_launch_their_kernels(cuda_device):
+    """One ``cms_update`` launch per ``hh_update``; one
+    ``quantile_compact`` launch per level of a ``quantile_update`` (the
+    compaction runs at every level, selected on the device); the states
+    equal the CPU run's."""
+    rng = np.random.default_rng(1)
+    v = torch.from_numpy(rng.normal(60, 15, 2200).astype(np.float32))
+    w = torch.from_numpy(((rng.random(2200) < 0.5) * 9.25).astype(
+        np.float32))
+    u = torch.from_numpy(rng.random(4).astype(np.float32))
+    hh_cpu = tsketch.hh_update(tsketch.hh_init(8, 1024, 4),
+                               tsketch.hh_item_key(v), w)
+    q_cpu = tsketch.quantile_update(u, tsketch.quantile_init(256), v, w)
+    reset_launches()
+    d = cuda_device
+    hh = tsketch.hh_update(tsketch.hh_init(8, 1024, 4, d),
+                           tsketch.hh_item_key(v.to(d)), w.to(d))
+    assert LAUNCHES["cms_update"] == 1
+    q = tsketch.quantile_update(u.to(d), tsketch.quantile_init(256, d),
+                                v.to(d), w.to(d))
+    assert LAUNCHES["quantile_compact"] == 4
+    for a, b in zip(hh + q, hh_cpu + q_cpu):
+        _bits(a.cpu().numpy(), b.numpy())

@@ -196,7 +196,7 @@ def test_spec_round_trip_and_unported_parts():
     assert (r.capacities, r.sample_sizes, r.p_level) == (
         jr.capacities, jr.sample_sizes, jr.p_level)
     tenanted = dict(jspec.to_dict(), tenants=[{"name": "t", "queries": []}])
-    with pytest.raises(P.SpecError, match="query plane not ported yet"):
+    with pytest.raises(P.SpecError, match="registers no queries"):
         P.PipelineSpec.from_dict(tenanted)
     with pytest.raises(ValueError, match="ROADMAP.md Queue 2 item 6"):
         P.compile(P.PipelineSpec(sampler=P.SamplerSpec(backend="pallas")),
@@ -226,7 +226,8 @@ def _imports(path: Path) -> set[str]:
 
 def test_port_never_imports_jax_or_the_reference():
     files = sorted((REPO / "src" / "repro_torch").rglob("*.py"))
-    files.append(REPO / "chip_smoke.py")
+    assert REPO / "src" / "repro_torch" / "query" / "compiler.py" in files
+    files += [REPO / "chip_smoke.py", REPO / "examples" / "quickstart_torch.py"]
     assert len(files) > 20
     for path in files:
         for mod in _imports(path):
@@ -234,7 +235,9 @@ def test_port_never_imports_jax_or_the_reference():
             assert root not in ("jax", "jaxlib", "repro"), (path, mod)
     code = ("import sys, repro_torch, repro_torch.convert, "
             "repro_torch.kernels.fused_level_tick.ops, "
-            "repro_torch.kernels.stratified_stats.ops\n"
+            "repro_torch.kernels.stratified_stats.ops, "
+            "repro_torch.kernels.sketch_update.ops, "
+            "repro_torch.query.compiler, repro_torch.query.sketches\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]\n"
             "print(bad); sys.exit(1 if bad else 0)")

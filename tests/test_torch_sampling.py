@@ -242,3 +242,15 @@ def test_compact_sample_matches_reference(out_cap):
     _bits(got.meta.count.numpy(), want.meta.count)
     np.testing.assert_array_max_ulp(got.meta.weight.numpy(),
                                     np.asarray(want.meta.weight), maxulp=1)
+
+
+def test_sqrt_rn_is_the_reference_sqrt():
+    """``torch.sqrt`` of f32 on the CPU is off by 1 ulp on some inputs;
+    ``sqrt_rn`` (which ``stratum_stds`` and the query bounds use) equals
+    the reference's compiled ``sqrt`` on all of them."""
+    rng = np.random.default_rng(0)
+    x = (rng.random(200_000) * 10.0 ** rng.integers(-30, 30, 200_000)
+         ).astype(np.float32)
+    x[:3] = (0.0, 1.0, 306366.0)
+    want = jax.jit(jnp.sqrt)(x)
+    _bits(tsamp.sqrt_rn(torch.from_numpy(x)).numpy(), want)
