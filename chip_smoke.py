@@ -15,8 +15,14 @@ Drives ``src/repro_torch`` only (nothing of JAX or of the JAX package):
    ``cms_update`` at the tenants' shapes and the reference test's;
    ``quantile_compact`` at every (slots, targets) shape one root window
    of the tenant path launches and at slot counts that are not a
-   multiple of its tile. Everything agrees bitwise except
-   ``stratified_stats``' Σx and Σx², held to ``SUMS_RTOL``;
+   multiple of its tile; ``sample_mask`` at the three shapes of the
+   ``pallas`` path, with ties and sentinels, and at M = 1, 333, 44,033;
+   the ordered ``segment_sum`` against the CPU's ``index_add_`` on sums
+   whose value depends on their order. Everything agrees bitwise except
+   ``stratified_stats``' Σx and Σx², held to ``SUMS_RTOL`` (a fixed-order
+   block reduction, not item order). Then the neyman reservoirs and masks
+   of the ``argsort``, ``topk`` and ``pallas`` backends at the testbed's
+   level shapes, card against CPU, bitwise;
 3. runs the paper testbed (fanin 4→2→1, capacity 11008, 4 strata,
    fraction 0.1, ``pallas_fused``) through ``compile``/``init``/
    ``run_epoch`` on the card, twice: without tenants for ``EPOCHS``
@@ -24,15 +30,25 @@ Drives ``src/repro_torch`` only (nothing of JAX or of the JAX package):
    (``k8_registry`` and ``serve_registry``, all eight query kinds) for
    ``Q_EPOCHS`` epochs. Each run starts from launch counts of 0 and
    must launch every kernel of its path as often as the path requires.
-   Both are held against the same runs on the CPU; the SUM against the
-   exact sum and its bound; the tenants' quantile answers against the
-   exact quantiles and their rank bounds, and their heavy hitters
-   against the stream's most frequent key. ``mode="srs"`` runs once;
+   Both are held against the same runs on the CPU, bitwise (answers,
+   variances, histograms, state, sketch state) but for the sketches'
+   rank and count-min bounds, held to ``SKETCH_BOUND_RTOL``; the SUM
+   against the exact sum and its bound; the tenants' quantile answers
+   against the exact quantiles and their rank bounds, and their heavy
+   hitters against the stream's most frequent key. ``mode="srs"`` runs
+   once (its sums, ``torch.sum`` over the buffer, to ``SRS_RTOL``).
+   Then the analytics driver (``launch.analytics.run_pipeline``) on the
+   testbed as ``build_spec`` builds it: ``level`` and ``scan`` with
+   ``pallas``, ``level`` with ``topk`` and neyman, and the skewed Poisson
+   mix with ``pallas``; each held bitwise against its CPU run (SUM,
+   bound, forwarded counts, per-window ``n_sampled``), within 2σ of the
+   exact sum, launching ``sample_mask`` 3 times a tick on ``pallas``;
 4. times each kernel at the main path's shapes beside its bound, its
    plain version and (where one exists) one PyTorch call computing the
    same function, as device time from the profiler's CUDA trace, times
-   the WHS epochs with and without tenants and the SRS epochs, and
-   profiles one epoch of each WHS path;
+   the WHS epochs with and without tenants and the SRS epochs, profiles
+   one epoch of each WHS path, and prints the analytics runs' items/s per
+   engine and backend;
 5. prints a ``kernels`` JSON line and, last, the ``ok`` JSON line.
 
 It exits non-zero, before printing any result, without a CUDA device or
@@ -54,19 +70,18 @@ from torch.profiler import ProfilerActivity, profile
 EPOCHS = 2            # tenant-free WHS path
 Q_EPOCHS = 2          # the path with tenants
 TICKS = 16
+DRIVER_TICKS = 4      # measured ticks of each analytics-driver run
+DRIVER_WARMUP = 2
 SUMS_RTOL = 1e-5        # Σx, Σx²: fixed-order f32 sums vs item-order sums
-ANSWER_RTOL = {         # card vs CPU run of the whole pipeline
-    "sum": 1e-5, "mean": 1e-5, "histogram": 1e-5,
-    # s² = (Σx² − Y·mean²)/(Y−1) cancels ~3 digits at the testbed's values
-    "sum_var": 1e-3, "mean_var": 1e-3,
-}
-# The tenants' answers and bounds, card vs CPU: the CLT and histogram
-# answers come from the same atomics as "sum"; the bounds are 2·√var of
-# variances held to 1e-3 above, and the sketch bounds divide by sums over
-# the sketch's slots that torch.sum adds in another order on the card.
-# Heavy-hitter keys and estimates, quantile answers and every sketch
-# state leaf must be bitwise.
-QUERY_RTOL = {"answers": 1e-5, "bounds": 1e-3}
+# The SRS root's SUM and MEAN are torch.sum over the whole sample buffer,
+# which adds in another order on the card; s² = (Σ(x − mean)²)/(n − 1)
+# inherits the mean's difference. Card vs CPU run of the SRS path.
+SRS_RTOL = {"sum": 1e-5, "mean": 1e-5, "histogram": 1e-5,
+            "sum_var": 1e-3, "mean_var": 1e-3}
+# The sketches' bounds (quantile rank bound, count-min ε·W) divide by the
+# sketch's total weight, a torch.sum over its slots that adds in another
+# order on the card. Every other answer and bound, card vs CPU, is bitwise.
+SKETCH_BOUND_RTOL = 1e-5
 # A quantile answer's rank on the exact stream must lie within its
 # reported (compaction) rank bound plus the sampling error of the root's
 # HT-weighted sample: RANK_SIGMAS·√(q(1−q)/n) for n items kept.
@@ -78,6 +93,7 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 # rate for the int32 compares the kernels mostly do).
 ALU_OPS_PER_S = 67e12
 REPLACES = {
+    "sample_mask": "src/repro/kernels/sample_mask/sample_mask.py:39",
     "fused_level_tick":
         "src/repro/kernels/fused_level_tick/fused_level_tick.py:229",
     "fused_select":
@@ -89,6 +105,7 @@ REPLACES = {
         "src/repro/kernels/sketch_update/sketch_update.py:138",
 }
 SOURCES = {
+    "sample_mask": "src/repro_torch/csrc/sample_mask.cu",
     "fused_level_tick": "src/repro_torch/csrc/fused_level_tick.cu",
     "fused_select": "src/repro_torch/csrc/fused_level_tick.cu",
     "stratified_stats": "src/repro_torch/csrc/stratified_stats.cu",
@@ -325,6 +342,202 @@ def check_sketch_kernels(dev, path_shapes) -> dict:
     return err
 
 
+# The three sample_mask launches of one tick of the ``pallas`` path on the
+# testbed: level 0 flattened (4 nodes x 11,008 items, 4 x 4 composite
+# strata), level 1 (2 x 2,200, 2 x 4), the root (2,200, 4).
+MASK_SHAPES = ((44_032, 16), (4_400, 8), (2_200, 4))
+
+
+def mask_inputs(rng, m, x, ties):
+    """Priorities, strata, valid for one ``sample_mask`` launch, τ from a
+    random allocation with a keep-none (N = 0) and a keep-all (N ≥ c)
+    stratum, and per-stratum weights; padding slots carry strata outside
+    [0, X)."""
+    from repro_torch.kernels.sample_mask import ops as sm
+
+    u = (rng.integers(0, 61, m) / 61.0 if ties else rng.random(m)).astype(
+        np.float32)
+    strata = rng.integers(0, x, m).astype(np.int32)
+    valid = rng.random(m) < 0.8
+    strata[~valid] = rng.integers(-2 * x, 2 * x, int((~valid).sum()))
+    res = rng.integers(0, max(m // x, 2), x).astype(np.float32)
+    res[0], res[-1] = 0.0, float(m)
+    t = [torch.from_numpy(a) for a in (u, strata, valid)]
+    tau = sm.thresholds_from_reservoirs(*t, torch.from_numpy(res), x)
+    w = torch.from_numpy(rng.uniform(0.5, 9.0, x).astype(np.float32))
+    return t + [tau, w]
+
+
+def ordered_inputs(rng, rows, m, x):
+    """Values of mixed magnitude (1e-3 to 1e6) with alternating signs, so
+    any reordering of a segment's adds changes its f32 sum, and int32 ids
+    (the strata's type on the path) of which some fall outside [0, X)."""
+    mag = 10.0 ** rng.uniform(-3, 6, (rows, m))
+    vals = (mag * np.where(np.arange(m) % 2 == 0, 1.0, -1.0)).astype(
+        np.float32)
+    ids = rng.integers(-2, x + 2, (rows, m)).astype(np.int32)
+    return torch.from_numpy(vals), torch.from_numpy(ids)
+
+
+def check_slice3_kernels(dev) -> dict:
+    """Phase 2, this slice's kernels: ``sample_mask`` against its plain
+    version and the ordered ``segment_sum`` against the CPU, bitwise.
+    Returns the largest absolute difference seen per kernel."""
+    from repro_torch.kernels.sample_mask import ops as sm, ref as sm_ref
+    from repro_torch.kernels.segment_sum import ops as seg, ref as seg_ref
+
+    rng = np.random.default_rng(13)
+    err = {"sample_mask": 0.0, "segment_sum": 0.0}
+    cases = [(m, x, ties) for m, x in MASK_SHAPES for ties in (False, True)]
+    cases += [(1, 4, False), (333, 4, True), (44_033, 16, True)]
+    for m, x, ties in cases:
+        args = mask_inputs(rng, m, x, ties)
+        plain = sm_ref.sample_mask(*args)
+        card = sm.sample_mask(*(a.to(dev) for a in args))
+        torch.cuda.synchronize()
+        for p, k in zip(plain, card):
+            if not same_bits(p, k):
+                fail(f"sample_mask differs from the plain version at M={m} "
+                     f"X={x} ties={ties}")
+            err["sample_mask"] = max(err["sample_mask"], max_abs(p, k))
+    print(f"sample_mask vs plain at (M, X, ties) = {cases}: bitwise equal")
+    seg_cases = [(1, 1, 1), (1, 2_200, 4), (4, 11_008, 4), (2, 2_200, 4),
+                 (1, 44_032, 16), (2, 4_400, 64), (1, 2_200, 64),
+                 (3, 777, 33)]
+    for rows, m, x in seg_cases:
+        vals, ids32 = ordered_inputs(rng, rows, m, x)
+        # int64 ids too (the histograms' bins), some beyond int32's range
+        ids64 = ids32.to(torch.int64)
+        ids64 = torch.where(ids64 % 3 == 0, ids64 + (1 << 32), ids64)
+        for ids in (ids32, ids64):
+            plain = seg_ref.segment_sum(vals, ids, x)
+            card = seg.segment_sum(vals.to(dev), ids.to(dev), x)
+            torch.cuda.synchronize()
+            if not same_bits(plain, card):
+                fail(f"segment_sum differs from the CPU's item-order sums "
+                     f"at rows={rows} M={m} X={x} ids {ids.dtype}")
+            err["segment_sum"] = max(err["segment_sum"],
+                                     max_abs(plain, card))
+    print(f"segment_sum vs the CPU (rows, M, X) = {seg_cases}, int32 and "
+          f"int64 ids: bitwise equal on order-sensitive sums")
+    return err
+
+
+def check_neyman_masks(dev, S):
+    """The neyman allocation on the card, fed by the ordered float sums:
+    reservoirs and masks of ``argsort``, ``topk`` and ``pallas`` at the
+    testbed's level 0 (one tick of the Gaussian stream), level 1 and the
+    root, card against CPU, bitwise."""
+    from repro_torch.core import prng, whs
+    from repro_torch.core.types import IntervalBatch, StratumMeta
+
+    b = make_ingest(S, 1, 11008)[0]
+    v0 = torch.from_numpy(b.values[0])
+    s0 = torch.from_numpy(b.strata[0])
+    ok0 = torch.arange(11008)[None, :] < torch.from_numpy(b.counts[0])[:, None]
+    rng = np.random.default_rng(21)
+    l1 = level_inputs(rng, 2, 2200, 4, 1.0, True)
+    root = level_inputs(rng, 1, 2200, 4, 0.9, False)
+    levels = {"level 0": (v0, s0, ok0, torch.ones(4, 4), torch.zeros(4, 4)),
+              "level 1": (l1[0], l1[1], l1[2], l1[4], l1[5])}
+    key = prng.PRNGKey(0)
+    size = torch.tensor(1100.0)
+    for backend in ("argsort", "topk", "pallas"):
+        for name, (v, st, ok, w, c) in levels.items():
+            n, cap = v.shape
+            prio = prng.uniform(prng.split(key, n), (cap,))
+            res = []
+            for d in ("cpu", dev):
+                r = whs.level_whsamp(
+                    None, *(a.to(d) for a in (v, st, ok, w, c)), size.to(d),
+                    4, allocation="neyman", backend=backend,
+                    max_reservoir=1100, priorities=prio.to(d))
+                res.append(r)
+            for f in ("selected", "reservoir", "c", "y"):
+                if not same_bits(getattr(res[0], f), getattr(res[1], f)):
+                    fail(f"neyman {backend} {name}: {f} differs between the "
+                         f"card and the CPU")
+        batch = IntervalBatch(root[0][0], root[1][0], root[2][0],
+                              StratumMeta(root[4][0], root[5][0]))
+        res = [whs.whsamp(key.to(d), IntervalBatch(
+                   *(a.to(d) for a in batch[:3]),
+                   StratumMeta(*(a.to(d) for a in batch.meta))),
+                   size.to(d), 4, allocation="neyman", backend=backend,
+                   max_reservoir=1100) for d in ("cpu", dev)]
+        for f in ("selected", "reservoir", "y"):
+            if not same_bits(getattr(res[0], f), getattr(res[1], f)):
+                fail(f"neyman {backend} root: {f} differs between the card "
+                     f"and the CPU")
+        if not same_bits(res[0].meta.weight, res[1].meta.weight):
+            fail(f"neyman {backend} root: W^out differs")
+    print("neyman reservoirs and masks (argsort, topk, pallas; level 0 "
+          "[4, 11008] of one stream tick, level 1 [2, 2200], root [2200]): "
+          "card and CPU bitwise")
+
+
+# (name, --dist, --engine, --backend, --allocation) of the analytics runs.
+DRIVER_RUNS = (("level pallas", "gaussian", "level", "pallas", "fair"),
+               ("scan pallas", "gaussian", "scan", "pallas", "fair"),
+               ("level topk neyman", "gaussian", "level", "topk", "neyman"),
+               ("level pallas skewed", "poisson-skewed", "level", "pallas",
+                "fair"))
+
+
+def run_driver(A, device, dist, engine, backend, allocation):
+    return A.run_pipeline(A.stream_specs(dist), fraction=0.1,
+                          ticks=DRIVER_TICKS, warmup_ticks=DRIVER_WARMUP,
+                          seed=0, engine=engine, sampler_backend=backend,
+                          allocation=allocation, device=device)
+
+
+def check_driver(A, dev, LAUNCHES, reset_launches) -> dict:
+    """The analytics driver on the card, each run from launch counts of
+    0, against the same run on the CPU. Returns {run name: (report,
+    launches)}."""
+    out = {}
+    for name, dist, engine, backend, alloc in DRIVER_RUNS:
+        reset_launches()
+        card = run_driver(A, dev, dist, engine, backend, alloc)
+        launches = dict(LAUNCHES)
+        cpu = run_driver(A, "cpu", dist, engine, backend, alloc)
+        for k in ("approx_sum", "bound_2sigma", "exact_sum",
+                  "items_ingested", "items_forwarded", "n_sampled",
+                  "dispatches", "windows"):
+            if card[k] != cpu[k]:
+                fail(f"driver {name}: {k} differs between the card "
+                     f"({card[k]}) and the CPU ({cpu[k]})")
+        if card["windows"] != DRIVER_TICKS or not np.isfinite(
+                card["approx_sum"]):
+            fail(f"driver {name}: expected {DRIVER_TICKS} finite windows")
+        if not card["within_2sigma"]:
+            fail(f"driver {name}: SUM {card['approx_sum']} not within its "
+                 f"2-sigma bound {card['bound_2sigma']} of the exact "
+                 f"{card['exact_sum']}")
+        # Every tick, warm-up included (the scan engine warms up with one
+        # whole epoch): 3 sample_mask and 3 stratified_stats on pallas;
+        # the root's moments and histogram, 6 float segment sums, and 2
+        # more per level with neyman.
+        ticks = DRIVER_TICKS + (DRIVER_TICKS if engine == "scan"
+                                else DRIVER_WARMUP)
+        pallas = backend == "pallas"
+        want = {"sample_mask": 3 * ticks if pallas else 0,
+                "stratified_stats": 3 * ticks if pallas else 0,
+                "segment_sum": (12 if alloc == "neyman" else 6) * ticks,
+                "fused_level_tick": 0, "fused_select": 0, "cms_update": 0,
+                "quantile_compact": 0}
+        if launches != want:
+            fail(f"driver {name}: launches {launches}, expected {want}")
+        print(f"driver {name} ({dist}, {engine}, {backend}, {alloc}): SUM "
+              f"{card['approx_sum']:.6e} +/- {card['bound_2sigma']:.3e}, "
+              f"exact {card['exact_sum']:.6e}, within 2 sigma; forwarded "
+              f"{card['items_forwarded']}; n_sampled {card['n_sampled']}; "
+              f"card and CPU bitwise; launches {launches}; "
+              f"{card['throughput_items_s']:.4g} items/s on the card, "
+              f"{cpu['throughput_items_s']:.4g} on the CPU")
+        out[name] = (card, launches)
+    return out
+
+
 # ------------------------------------------------------------ main path --
 def k8_registry(Q):
     """The K=8 standing-query mix of ``benchmarks/fig8_accuracy.py``
@@ -405,16 +618,22 @@ def run_path(P, spec, device, batches):
     return pipe, state, answers, secs, items
 
 
-def compare_answers(card, cpu, what):
+def compare_answers(card, cpu, what, rtols=None):
+    """Window answers, card vs CPU: bitwise, or (``rtols``) the sums to
+    the tolerances given."""
     exact = ("tick", "ok", "n_sampled", "n_forwarded")
+    sums = ("sum", "sum_var", "mean", "mean_var", "histogram")
+    if rtols is None:
+        exact, rtols = exact + sums, {}
     for wa_k, wa_p in zip(card, cpu):
         for f in exact:
             if not same_bits(getattr(wa_k, f), getattr(wa_p, f)):
                 fail(f"{what}: {f} differs between the card and the CPU")
-        for f, rtol in ANSWER_RTOL.items():
-            k, p = getattr(wa_k, f).cpu(), getattr(wa_p, f)
-            if not torch.isfinite(k).all():
+        for f in sums:
+            if not torch.isfinite(getattr(wa_k, f).cpu()).all():
                 fail(f"{what}: {f} is not finite on the card")
+        for f, rtol in rtols.items():
+            k, p = getattr(wa_k, f).cpu(), getattr(wa_p, f)
             if not torch.allclose(k, p, rtol=rtol, atol=0.0):
                 worst = float(((k - p).abs() / p.abs().clamp_min(1e-30))
                               .max())
@@ -424,26 +643,30 @@ def compare_answers(card, cpu, what):
 
 def compare_queries(pipe, card, cpu, card_state, cpu_state):
     """The tenants' answers and bounds, card vs CPU, and the sketch state:
-    see ``QUERY_RTOL``."""
-    exact_cols = []
+    bitwise, but for the sketches' bounds (``SKETCH_BOUND_RTOL``)."""
+    sketch_cols, exact_cols = [], []
     for o, w, kind in pipe.query_layout().values():
         if kind in SKETCH_KINDS or kind in HH_KINDS:
+            sketch_cols.extend(range(o, o + w))
+        else:
             exact_cols.extend(range(o, o + w))
-    exact_cols = torch.tensor(exact_cols)
+    sketch_cols, exact_cols = (torch.tensor(c) for c in (sketch_cols,
+                                                         exact_cols))
     for wa_k, wa_p in zip(card, cpu):
         ans_k, ans_p = wa_k.answers.cpu(), wa_p.answers
-        if not torch.isfinite(ans_k).all():
-            fail("tenants: answers are not finite on the card")
-        if not same_bits(ans_k[:, exact_cols], ans_p[:, exact_cols]):
-            fail("tenants: heavy-hitter or quantile answers differ "
-                 "between the card and the CPU")
-        for f, rtol in QUERY_RTOL.items():
-            k, p = getattr(wa_k, f).cpu(), getattr(wa_p, f)
-            if not torch.allclose(k, p, rtol=rtol, atol=0.0):
-                worst = float(((k - p).abs() / p.abs().clamp_min(1e-30))
-                              .max())
-                fail(f"tenants: {f} differ from the CPU run by {worst:.3g} "
-                     f"relative (> {rtol})")
+        bnd_k, bnd_p = wa_k.bounds.cpu(), wa_p.bounds
+        if not (torch.isfinite(ans_k).all() and torch.isfinite(bnd_k).all()):
+            fail("tenants: answers or bounds are not finite on the card")
+        if not same_bits(ans_k, ans_p):
+            fail("tenants: answers differ between the card and the CPU")
+        if not same_bits(bnd_k[:, exact_cols], bnd_p[:, exact_cols]):
+            fail("tenants: CLT or histogram bounds differ between the card "
+                 "and the CPU")
+        k, p = bnd_k[:, sketch_cols], bnd_p[:, sketch_cols]
+        if not torch.allclose(k, p, rtol=SKETCH_BOUND_RTOL, atol=0.0):
+            worst = float(((k - p).abs() / p.abs().clamp_min(1e-30)).max())
+            fail(f"tenants: sketch bounds differ from the CPU run by "
+                 f"{worst:.3g} relative (> {SKETCH_BOUND_RTOL})")
 
     def leaves(tree):
         if torch.is_tensor(tree):
@@ -566,6 +789,9 @@ def main() -> None:
     from repro_torch.kernels.fused_level_tick import ops as ft, ref as ft_ref
     from repro_torch.kernels.stratified_stats import ops as ss, ref as ss_ref
     from repro_torch.kernels.sketch_update import ops as sk, ref as sk_ref
+    from repro_torch.kernels.sample_mask import ops as sm, ref as sm_ref
+    from repro_torch.kernels.segment_sum import ops as segsum
+    from repro_torch.kernels.segment_sum import ref as segsum_ref
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -596,7 +822,9 @@ def main() -> None:
     path_shapes = compact_shapes(qr.plan, root_m)
     err = check_kernels(dev)
     err.update(check_sketch_kernels(dev, path_shapes))
+    err.update(check_slice3_kernels(dev))
     print(f"max abs differences vs plain: {err}")
+    check_neyman_masks(dev, S)
 
     # 3. The main path on the card, then on the CPU.
     spec = testbed_spec(P)
@@ -609,9 +837,11 @@ def main() -> None:
     pipe, state, answers, secs, items = run_path(P, spec, dev, batches)
     launches = dict(LAUNCHES)
     ticks = EPOCHS * TICKS
+    # the root's moments and histogram: 6 ordered float sums a window
     expected = {"fused_level_tick": 2 * ticks, "fused_select": ticks,
                 "stratified_stats": ticks, "cms_update": 0,
-                "quantile_compact": 0}
+                "quantile_compact": 0, "sample_mask": 0,
+                "segment_sum": 6 * ticks}
     print(f"launches on the tenant-free path: {launches} (expected "
           f"{expected})")
     for name, want in expected.items():
@@ -622,9 +852,8 @@ def main() -> None:
                                                       batches)
     compare_answers(answers, cpu_answers, "whs")
     compare_states(state, cpu_state, "whs")
-    print("main path: answers and state agree with the CPU run "
-          f"(ok/n_sampled/n_forwarded/state bitwise, sums within "
-          f"{ANSWER_RTOL})")
+    print("main path: answers, variances, histograms and state bitwise the "
+          "CPU run's")
     rows = [row for wa in answers for row in pipe.rows(wa)]
     approx = sum(row["sum"] for row in rows)
     exact = sum(b.exact_sum for b in batches)
@@ -654,7 +883,7 @@ def main() -> None:
     qticks = Q_EPOCHS * TICKS
     per_window = {"fused_level_tick": 2, "fused_select": 1,
                   "stratified_stats": 1, "cms_update": 2,
-                  "quantile_compact": len(path_shapes)}
+                  "quantile_compact": len(path_shapes), "sample_mask": 0}
     q_expected = {k: v * qticks for k, v in per_window.items()}
     print(f"launches on the path with tenants: {q_launches} (expected "
           f"{q_expected}: per root window {per_window})")
@@ -662,15 +891,19 @@ def main() -> None:
         if q_launches[name] != want:
             fail(f"{name} launched {q_launches[name]} times on the path "
                  f"with tenants, expected {want}")
+    # the root's 6 and the plan's moments and histogram queries
+    if q_launches["segment_sum"] < 6 * qticks:
+        fail(f"segment_sum launched {q_launches['segment_sum']} times on "
+             f"the path with tenants, expected at least {6 * qticks}")
     _, qcpu_state, qcpu_answers, qcpu_secs, _ = run_path(P, qspec, "cpu",
                                                          qbatches)
     compare_answers(qanswers, qcpu_answers, "tenants")
     compare_states(qstate, qcpu_state, "tenants")
     n_leaves = compare_queries(qpipe, qanswers, qcpu_answers, qstate,
                                qcpu_state)
-    print(f"tenants: answers agree with the CPU run (heavy hitters and "
-          f"quantiles bitwise, the rest within {QUERY_RTOL}); all "
-          f"{n_leaves} sketch state leaves bitwise")
+    print(f"tenants: answers and CLT bounds bitwise the CPU run's, sketch "
+          f"bounds within {SKETCH_BOUND_RTOL}; all {n_leaves} sketch state "
+          f"leaves bitwise")
     check_accuracy(qpipe, qanswers, qbatches)
     qrows = [row for wa in qanswers for row in qpipe.rows(wa)]
     if len(qrows) != qticks:
@@ -689,13 +922,20 @@ def main() -> None:
         P, srs_spec, dev, srs_batches)
     _, srs_cpu_state, srs_cpu_ans, _, _ = run_path(P, srs_spec, "cpu",
                                                    srs_batches)
-    compare_answers(srs_ans, srs_cpu_ans, "srs")
+    compare_answers(srs_ans, srs_cpu_ans, "srs", rtols=SRS_RTOL)
     compare_states(srs_state, srs_cpu_state, "srs")
     srs_approx = sum(row["sum"] for wa in srs_ans for row in srs_pipe.rows(wa))
     srs_exact = sum(b.exact_sum for b in srs_batches)
     print(f"srs: SUM ~ {srs_approx:.6e}, exact {srs_exact:.6e}, |err| "
           f"{abs(srs_approx - srs_exact) / srs_exact:.3e} relative; "
-          f"agrees with the CPU run")
+          f"agrees with the CPU run (sums within {SRS_RTOL})")
+
+    # The analytics driver: HostTree's level engine and the scan engine
+    # with the pallas backend, the neyman allocation on topk, the skewed
+    # Poisson mix.
+    from repro_torch.launch import analytics as A
+
+    driver = check_driver(A, dev, LAUNCHES, reset_launches)
 
     # 4. Times, at the main path's shapes: device time from the profiler
     # (what ``ms``, ``plain_ms`` and ``library_ms`` report), and beside it
@@ -831,6 +1071,49 @@ def main() -> None:
                             max(cms_b)[1])
     bounds["quantile_compact"] = (sum(b[0] for b in qc_b) / n_qc,
                                   max(qc_b)[1])
+    # sample_mask at the pallas path's three launches of a tick; ms is the
+    # mean per launch. Bound: u, s (4 B each) and valid (1 B) in, keep
+    # (1 B) and w (4 B) out per item, τ and W in; a compare and a select
+    # per item. No PyTorch call computes this function: library none.
+    sm_cases = [[a.to(dev) for a in mask_inputs(rng, m, x, False)]
+                for m, x in MASK_SHAPES]
+
+    def sm_all(mod):
+        for args in sm_cases:
+            mod.sample_mask(*args)
+
+    sm_each = [device_ms(lambda a=a: sm.sample_mask(*a)) for a in sm_cases]
+    t["sample_mask"] = (sum(sm_each) / len(sm_cases),
+                        device_ms(lambda: sm_all(sm_ref), 5) / len(sm_cases),
+                        None)
+    wall["sample_mask"] = loop_ms(lambda: sm_all(sm)) / len(sm_cases)
+    sm_b = [bound(m * 14 + x * 8, 2 * m) for m, x in MASK_SHAPES]
+    bounds["sample_mask"] = (sum(b[0] for b in sm_b) / len(sm_b),
+                             max(sm_b)[1])
+    print(f"sample_mask device time per launch at (M, X) {MASK_SHAPES}: "
+          f"{[round(x, 5) for x in sm_each]} ms; bounds "
+          f"{[round(b[0] * 1e3, 5) for b in sm_b]} us ({sm_b[0][1]})")
+    # The ordered segment_sum at its path shapes: a root window's moments
+    # (2,200 items, 4 strata) and a neyman level's stds (4 x 11,008).
+    # Bound: value and id (8 B) per item in, the sums out; one add per
+    # item. Plain = library = index_add_ (float atomics, unordered).
+    seg_cases = [[a.to(dev) for a in ordered_inputs(rng, r, mm, 4)]
+                 for r, mm in ((1, 2200), (4, 11008))]
+    seg_ms = [device_ms(lambda a=a: segsum.segment_sum(*a, 4))
+              for a in seg_cases]
+    seg_plain = [device_ms(lambda a=a: segsum_ref.segment_sum(*a, 4), 5)
+                 for a in seg_cases]
+    seg_b = [bound(r * mm * 8 + r * 16, r * mm)
+             for r, mm in ((1, 2200), (4, 11008))]
+    print(f"segment_sum (ordered, repair kernel, no TPU counterpart): "
+          f"device {seg_ms[0]:.4f} ms at [1, 2200] x 4 (6 launches per "
+          f"root window), {seg_ms[1]:.4f} ms at [4, 11008] x 4 (neyman, "
+          f"level 0); bounds {seg_b[0][0]:.6f}, {seg_b[1][0]:.6f} ms "
+          f"({seg_b[0][1]}); plain = library (index_add_, atomics) "
+          f"{seg_plain[0]:.4f}, {seg_plain[1]:.4f} ms; launches on the "
+          f"level-pallas driver run "
+          f"{driver['level pallas'][1]['segment_sum']}; max abs err vs the "
+          f"CPU {err['segment_sum']}")
     print(f"fused_level_tick device time per launch: L0 [{n0}, {cap0}] "
           f"{ms_l0:.4f} ms (bound {b_l0[0] * 1e3:.3f} us, {b_l0[1]}), "
           f"L1 [{n1}, {cap1}] {ms_l1:.4f} ms (bound {b_l1[0] * 1e3:.3f} us, "
@@ -839,7 +1122,7 @@ def main() -> None:
     print(f"launch floor (1-element add_): device "
           f"{device_ms(lambda: tiny.add_(1.0), 200):.4f} ms, back-to-back "
           f"loop {loop_ms(lambda: tiny.add_(1.0), 200):.4f} ms")
-    per_tick = per_window
+    per_tick = dict(per_window, sample_mask=3)
     for name, (ms, plain_ms, lib_ms) in t.items():
         print(f"{name}: device {ms:.4f} ms/launch (wrapper loop "
               f"{wall[name]:.4f} ms), {per_tick[name]} launch(es) per tick, "
@@ -857,10 +1140,19 @@ def main() -> None:
           f"includes warm-up); steady {srs_rate:.4g} items/s on the card")
     profile_epoch("whs epoch", pipe, state, batches[-1])
     profile_epoch("whs epoch with tenants", qpipe, qstate, qbatches[-1])
+    for name, (rep_, _) in driver.items():
+        print(f"driver items/s, {name}: {rep_['throughput_items_s']:.4g} "
+              f"({DRIVER_TICKS} ticks, wall {rep_['wall_s'] * 1e3:.1f} ms, "
+              f"level time {[round(x * 1e3, 2) for x in rep_['level_time_s']]}"
+              f" ms, {rep_['dispatches']} dispatches)")
 
     # 5. Result lines.
+    # launches: the tenant path's for the five kernels on it, the pallas
+    # driver run's for sample_mask.
+    path_launches = dict(q_launches,
+                         sample_mask=driver["level pallas"][1]["sample_mask"])
     kernels = [{"name": name, "route": "cuda", "source": SOURCES[name],
-                "replaces": REPLACES[name], "launches": q_launches[name],
+                "replaces": REPLACES[name], "launches": path_launches[name],
                 "max_abs_err": err[name], "ms": t[name][0],
                 "plain_ms": t[name][1], "bound_ms": bounds[name][0],
                 "bound_by": bounds[name][1], "library_ms": t[name][2]}

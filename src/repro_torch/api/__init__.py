@@ -7,7 +7,8 @@
                                     strata, counts)
 """
 from repro_torch.api.pipeline import (CompiledPipeline, PipelineState,
-                                      WindowAnswers, compile)
+                                      WindowAnswers, compile,
+                                      program_cache_stats)
 from repro_torch.api.spec import (BudgetSpec, PipelineSpec, SamplerSpec,
                                   SpecError, StrataSpec, TelemetrySpec,
                                   TenantSpec, TopologySpec, resolve)
@@ -16,4 +17,5 @@ __all__ = [
     "PipelineSpec", "TopologySpec", "SamplerSpec", "BudgetSpec",
     "TelemetrySpec", "StrataSpec", "TenantSpec", "SpecError", "resolve",
     "compile", "CompiledPipeline", "PipelineState", "WindowAnswers",
+    "program_cache_stats",
 ]

@@ -14,8 +14,10 @@ The counterpart of ``repro.api.pipeline``:
   standing queries' answers and bounds; ``reset_queries`` empties the
   sketches.
 
-Not ported yet: ``admit``/``retire`` (tenant churn),
-``program_cache_stats`` and checkpoints.
+``program_cache_stats`` counts program signatures seen and repeated,
+the counterpart of the reference's program cache (each pipeline builds
+its own tick and epoch closures, which cost next to nothing). Not
+ported yet: ``admit``/``retire`` (tenant churn) and checkpoints.
 
 The pipeline runs on a CUDA device unless ``device="cpu"`` is asked for
 (see ``repro_torch.device``). ``budgets`` are per-level sample sizes,
@@ -30,7 +32,7 @@ import torch
 
 from repro_torch.api import spec as specmod
 from repro_torch.api.spec import PipelineSpec, SpecError
-from repro_torch.core import prng, sampling
+from repro_torch.core import prng
 from repro_torch.core import tree as T
 from repro_torch.core.window import TreeState
 from repro_torch.device import resolve_device
@@ -150,13 +152,36 @@ class QueryRouting:
                                  default_tenant=self.tenant_names[0])
 
 
+# Program signatures seen so far. The tick and epoch functions are plain
+# closures, cheap to build, so each pipeline builds its own; the set only
+# counts what the reference's program cache would build and reuse. The
+# plan component is the canonical ``SlotPlanCore``, which the plan cache
+# (``query.compiler``) already keeps alive.
+_PROGRAM_SIGS: set = set()
+_PROGRAM_STATS = {"misses": 0, "hits": 0}
+
+
+def _count_program(sig: tuple) -> None:
+    if sig in _PROGRAM_SIGS:
+        _PROGRAM_STATS["hits"] += 1
+    else:
+        _PROGRAM_SIGS.add(sig)
+        _PROGRAM_STATS["misses"] += 1
+
+
+def program_cache_stats() -> dict:
+    """{"misses": program signatures seen for the first time, "hits":
+    repeats}: a ``compile`` of a spec whose program shape (topology,
+    budgets' ceilings, sampler, routing, telemetry, tenant plan) and
+    device were seen before counts as a reuse."""
+    return dict(_PROGRAM_STATS)
+
+
 class CompiledPipeline(QueryRouting):
     """One ``PipelineSpec`` bound to one device (see the module doc)."""
 
     def __init__(self, spec: PipelineSpec, device: torch.device):
         r = specmod.resolve(spec)
-        if spec.sampler.mode == "whs":
-            sampling.get_backend(spec.sampler.backend)  # unported → raises
         self.spec = spec
         self.device = device
         self.fanin = list(spec.topology.fanin)
@@ -170,6 +195,13 @@ class CompiledPipeline(QueryRouting):
         self.plan = r.plan
         self.tenant_names = tuple(t.name for t in spec.tenants)
         self._traced_plan = r.plan.core if r.plan is not None else None
+        sig = (tuple(self.fanin), tuple(self.capacities),
+               tuple(self.max_sample_sizes), tuple(self.interval_ticks),
+               self.num_strata, spec.sampler.allocation,
+               spec.sampler.backend, spec.sampler.mode, r.p_level,
+               spec.sampler.fraction, self.route_keys,
+               self.telemetry_enabled, self._traced_plan, device)
+        _count_program(sig)
         self._tick_fn = T._build_scan_tick(
             self.fanin, self.capacities, self.max_sample_sizes,
             self.interval_ticks, self.num_strata, spec.sampler.allocation,

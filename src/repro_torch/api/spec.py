@@ -118,10 +118,12 @@ class BudgetSpec:
     from ``sampler.fraction`` × capacity). ``max_fraction`` /
     ``max_sample_sizes`` provision buffer ceilings above the initial
     budgets, so ``run_epoch(..., budgets=)`` can move the budgets up to
-    them. ``target_rel_error`` (the reference's closed-loop controller,
-    not ported) only provisions full-capacity ceilings here; ``min_size``,
-    ``kp`` and ``ki`` are the controller's and are kept so the
-    reference's specs load unchanged."""
+    them. ``target_rel_error`` closes the §IV-B loop: the analytics
+    driver (``launch.analytics.run_pipeline``) runs
+    ``runtime.budget.BudgetController`` (``WorstTenantArbiter`` with
+    several tenants), which moves the budgets toward the target within
+    ``[min_size, ceiling]`` with gains ``kp`` and ``ki``; without an
+    explicit ceiling it provisions full-capacity ones."""
 
     sample_sizes: tuple | None = None
     max_sample_sizes: tuple | None = None
@@ -211,10 +213,12 @@ class StrataSpec:
 
     ``num_keys`` > 0 makes ingest stratum ids *keys*, gathered through an
     i32 ``[num_keys]`` table carried in the state (seeded round-robin at
-    ``init``). The online split/merge manager that edits the table
-    between epochs is not ported; ``adaptive`` and the two occupancy
-    thresholds are kept so that the reference's specs load unchanged.
-    0 (the default) carries no table."""
+    ``init``). ``adaptive`` has the analytics driver run
+    ``strata.StratumManager`` between epochs: slots hotter than
+    ``split_occupancy``× their fair share shed keys onto a spare slot,
+    slots below ``merge_occupancy``× of it fold into another
+    (``strata.remap_tree_state``, a same-shape edit of the table and the
+    Eq. 9 metadata). 0 (the default) carries no table."""
 
     num_keys: int = 0
     adaptive: bool = False

@@ -9,22 +9,23 @@ finite-population correction
 
 with ``c_src_i = Y_i · W_i^out`` and ``φ_i = c_src_i / Σ c_src``. Sums
 over strata run left to right with the reference's FMA contractions,
-so on the CPU the answers equal the reference's bit for bit. The
-per-stratum moments are scatter-adds: in item order on the CPU, atomics
-on CUDA, so on the card they agree with the CPU within a tolerance.
+so the answers equal the reference's bit for bit. The per-stratum
+moments are segment sums in item order, on the card through the
+``segment_sum`` kernel, so the card's answers equal the CPU's too.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.core.sampling import fma, fma_dot, segment_sum, seq_sum
+from repro_torch.core.sampling import (fma, fma_dot, segment_count,
+                                      segment_sum, seq_sum)
 from repro_torch.core.types import QueryResult, StratumMeta
 
 
 def stratum_moments(value, stratum, selected, num_strata: int):
     """Per-stratum (Y_i, Σx, Σx²) over the sampled items. f32[X] each."""
     seg = torch.where(selected, stratum, num_strata)
-    y = segment_sum(selected.float(), seg, num_strata)
+    y = segment_count(seg, num_strata)
     s1 = segment_sum(torch.where(selected, value, 0.0), seg, num_strata)
     s2 = segment_sum(torch.where(selected, value * value, 0.0), seg,
                      num_strata)

@@ -2,8 +2,8 @@
 
 The counterpart of ``repro.core.queries.weighted_histogram``: the
 estimated item count per value bin, a vector of linear queries, each
-with its plug-in variance. The bin sums are scatter-adds (item order on
-the CPU, atomics on CUDA).
+with its plug-in variance. The bin sums are segment sums in item order
+on every device (the ``segment_sum`` kernel on the card).
 """
 from __future__ import annotations
 

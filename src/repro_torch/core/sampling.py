@@ -5,21 +5,27 @@ sampling keeps a uniform random subset of size ``min(c_i, N_i)``; the
 parallel equivalent draws an i.i.d. priority per item and keeps each
 stratum's top-``N_i`` items by priority, ties broken by buffer position
 (the stable-lexsort law). Three backends realise that law and return
-identical masks for identical priorities:
+identical masks for identical priorities; ``pallas`` differs only on
+exact f32 ties at a threshold, which it keeps all:
 
 * ``argsort``      — one stable lexsort over (stratum, −priority).
 * ``topk``         — exact per-stratum thresholds from a dense
   ``torch.topk``, with position-ordered tie resolution.
+* ``pallas``       — the reference's two-kernel backend: thresholds,
+  then the ``sample_mask`` kernel (keeps every item tied at τ) and
+  ``stratified_stats`` for the counts.
 * ``pallas_fused`` — the reference's name for the fused selection
   kernel; here it runs ``kernels.fused_level_tick`` (a CUDA kernel on a
   card, its plain version on the CPU) and ``kernels.stratified_stats``
   for the counts.
 
 Every function takes any number of leading batch dimensions (the
-reference's ``vmap`` over nodes is a batch dimension here). Sums that
-feed a bitwise result are either integer-valued (counts, headroom, which
-are exact in any order) or taken left to right (``seq_sum``), which is
-the order the reference's compiled reductions use.
+reference's ``vmap`` over nodes is a batch dimension here); ``pallas``
+takes one flat problem, which the level engine flattens into. Sums that
+feed a bitwise result are integer-valued (counts, headroom, which are
+exact in any order), taken left to right (``seq_sum``), the order the
+reference's compiled reductions use, or per-segment in item order
+(``segment_sum``), the order of the reference's scatter.
 """
 from __future__ import annotations
 
@@ -28,31 +34,19 @@ from typing import Protocol, runtime_checkable
 import torch
 
 from repro_torch.core import prng
+# Float sums per segment in item order on every device (the card's kernel
+# adds in the reference scatter's order), for the core modules.
+from repro_torch.kernels.segment_sum.ops import segment_sum
 
 
 # --------------------------------------------------------------------------
 # Small exact helpers.
 # --------------------------------------------------------------------------
-def segment_sum(values: torch.Tensor, seg: torch.Tensor,
-                num_segments: int) -> torch.Tensor:
-    """``Σ values`` per segment along the last axis → ``[..., S]``.
-    Segment ids outside ``[0, S)`` are dropped, as the reference's
-    ``.at[seg].add`` drops them. On the CPU the adds run in item order
-    (the reference's scatter order); on CUDA they are atomics, exact
-    only for integer-valued inputs."""
-    lead = values.shape[:-1]
-    rows = 1
-    for d in lead:
-        rows *= d
-    v = values.reshape(rows, -1)
-    s = seg.reshape(rows, -1).to(torch.int64)
-    width = num_segments + 1
-    ok = (s >= 0) & (s < num_segments)
-    idx = torch.where(ok, s, num_segments)
-    idx = idx + torch.arange(rows, device=v.device)[:, None] * width
-    out = torch.zeros(rows * width, dtype=v.dtype, device=v.device)
-    out.index_add_(0, idx.reshape(-1), v.reshape(-1))
-    return out.reshape(lead + (width,))[..., :num_segments]
+def segment_count(seg: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """Items per segment along the last axis as f32 ``[..., S]`` (ids
+    outside ``[0, S)`` dropped): an integer sum, exact on every device."""
+    ones = torch.ones(seg.shape, dtype=torch.int32, device=seg.device)
+    return segment_sum(ones, seg, num_segments).float()
 
 
 def seq_sum(x: torch.Tensor) -> torch.Tensor:
@@ -99,9 +93,7 @@ def gather_last(table: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
 def stratum_counts(stratum: torch.Tensor, valid: torch.Tensor,
                    num_strata: int) -> torch.Tensor:
     """``c_i``: valid items per stratum. f32[..., X]."""
-    seg = torch.where(valid, stratum, num_strata)
-    return segment_sum(torch.ones_like(stratum, dtype=torch.float32), seg,
-                       num_strata)
+    return segment_count(torch.where(valid, stratum, num_strata), num_strata)
 
 
 def stratum_stds(values: torch.Tensor, stratum: torch.Tensor,
@@ -110,7 +102,7 @@ def stratum_stds(values: torch.Tensor, stratum: torch.Tensor,
     Feeds the ``neyman`` allocation; empty strata report 0."""
     seg = torch.where(valid, stratum, num_strata)
     v = torch.where(valid, values.float(), 0.0)
-    c = segment_sum(valid.float(), seg, num_strata)
+    c = segment_count(seg, num_strata)
     s1 = segment_sum(v, seg, num_strata)
     s2 = segment_sum(v * v, seg, num_strata)
     safe = torch.clamp_min(c, 1.0)
@@ -326,6 +318,44 @@ class TopKBackend:
         return strict | (tie & (rank_at <= gather_last(slack, stratum)))
 
 
+class PallasBackend:
+    """The reference's two-kernel backend, on Hopper: ``counts`` is the
+    count column of ``kernels.stratified_stats``; ``select`` finds each
+    stratum's threshold τ_i (the ``N_i``-th largest valid priority, plain
+    PyTorch) and keeps ``u ≥ τ`` with the ``sample_mask`` kernel. Every
+    item tied at τ is kept, so on exact f32 priority ties this backend
+    may keep more than ``N_i`` (the reference's law for it, unlike
+    ``argsort``'s). ``flatten_for_level``: a level runs as one
+    composite-stratum problem (stratum' = node·X + stratum), one kernel
+    pass over the level's items."""
+
+    name = "pallas"
+    flatten_for_level = True
+
+    def counts(self, stratum, valid, num_strata):
+        from repro_torch.kernels.stratified_stats import ops as ss_ops
+
+        stats = ss_ops.stratified_stats(
+            torch.zeros(stratum.shape, dtype=torch.float32,
+                        device=stratum.device),
+            stratum, valid, num_strata)
+        return stats[:, 0]
+
+    def select(self, key, stratum, valid, reservoirs, num_strata, *,
+               priorities=None, max_reservoir=None, batch_hint=1):
+        from repro_torch.kernels.sample_mask import ops as sm_ops
+
+        if priorities is None:
+            priorities = prng.uniform(key, (stratum.shape[0],))
+        tau = sm_ops.thresholds_from_reservoirs(
+            priorities, stratum, valid, reservoirs, num_strata)
+        keep, _ = sm_ops.sample_mask(
+            priorities, stratum, valid, tau,
+            torch.ones((num_strata,), dtype=torch.float32,
+                       device=stratum.device))
+        return keep
+
+
 class PallasFusedBackend:
     """The reference's single-kernel backend, on Hopper: ``counts`` is the
     count column of ``kernels.stratified_stats`` and ``select`` the
@@ -362,12 +392,8 @@ class PallasFusedBackend:
 
 
 _BACKENDS: dict[str, SamplerBackend] = {
-    b.name: b for b in (ArgsortBackend(), TopKBackend(), PallasFusedBackend())
-}
-# Names the reference accepts whose port is still queued (ROADMAP.md).
-_NOT_PORTED = {
-    "pallas": "the 'pallas' backend (sample_mask kernel) is not ported "
-              "yet: ROADMAP.md Queue 2 item 6 ports it",
+    b.name: b for b in (ArgsortBackend(), TopKBackend(), PallasBackend(),
+                        PallasFusedBackend())
 }
 
 DEFAULT_BACKEND = "argsort"
@@ -377,8 +403,6 @@ def get_backend(backend: str | SamplerBackend) -> SamplerBackend:
     """Resolve a backend by name (or pass an instance through)."""
     if not isinstance(backend, str):
         return backend
-    if backend in _NOT_PORTED:
-        raise ValueError(_NOT_PORTED[backend])
     try:
         return _BACKENDS[backend]
     except KeyError:

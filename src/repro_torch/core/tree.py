@@ -1,6 +1,13 @@
-"""The scan engine: the whole hierarchy as one tick, ``T`` ticks an epoch.
+"""The hierarchy's executors: the scan engine and ``HostTree``.
 
-The counterpart of the scan engine in ``repro.core.tree``: ingest → per
+The counterpart of ``repro.core.tree``. ``HostTree`` drives the paper's
+edge tree tick by tick on host buffers, one step per level (``level``)
+or per node (``loop``) per tick, or as epochs of the scan engine
+(``scan``); every engine folds (tick, level, node) into the seed for its
+keys and runs the same level and root math, so all three agree bitwise
+on identical ingest.
+
+The scan engine: ingest → per
 level flush, sample, compact and route to the parent → metadata fold →
 root query, for every level in one tick function, and an epoch function
 that runs ``T`` ticks. The reference's ``lax.scan`` is a Python loop
@@ -15,13 +22,16 @@ the window sample, its sketch state carried in ``TreeState.qstate``.
 """
 from __future__ import annotations
 
+import time
+
 import numpy as np
 import torch
 
 from repro_torch.core import error as err
 from repro_torch.core import prng, queries, sampling, srs, whs
 from repro_torch.core.types import IntervalBatch, StratumMeta
-from repro_torch.core.window import TreeState
+from repro_torch.core.window import LevelState, TreeState, Window
+from repro_torch.device import resolve_device
 
 
 # --------------------------------------------------------------------------
@@ -80,9 +90,7 @@ def _present_strata(strata_c, valid_c, num_strata: int):
     n = strata_c.shape[0]
     seg = torch.where(valid_c, whs._node_ix(n, strata_c.device) * num_strata
                       + strata_c, n * num_strata)
-    cnt = sampling.segment_sum(
-        torch.ones(seg.numel(), dtype=torch.float32, device=seg.device),
-        seg.reshape(-1), n * num_strata)
+    cnt = sampling.segment_count(seg.reshape(-1), n * num_strata)
     return (cnt > 0).reshape(n, num_strata)
 
 
@@ -467,3 +475,514 @@ def _build_epoch_fn(tick_fn, fanin, capacities, plan=None):
         return state, (ts.to(torch.int32),) + stacked
 
     return epoch
+
+
+# --------------------------------------------------------------------------
+# Per-tick steps of the ``level`` and ``loop`` engines. Each runs the same
+# core as the scan engine with the same (tick, level, node) keys, on
+# device tensors, and returns device tensors; the engine reads back what
+# the host needs. ``t`` and ``ix`` are host integers.
+# --------------------------------------------------------------------------
+def _node_step(capacity: int, num_strata: int, out_capacity: int,
+               allocation: str, backend: str, lvl: int):
+    """Loop engine, one WHS node: sample, compact (with the truncation
+    correction) → ``(values, strata, valid, W^out, C^out, y)``."""
+
+    def step(key, t, ix, values, strata, valid, w_in, c_in, sample_size):
+        k = _node_key(key, t, lvl, ix)
+        batch = IntervalBatch(values, strata, valid, StratumMeta(w_in, c_in))
+        res = whs.whsamp(k, batch, sample_size, num_strata,
+                         allocation=allocation, backend=backend,
+                         max_reservoir=out_capacity)
+        out = whs.compact_sample(batch, res, out_capacity)
+        return (out.value, out.stratum, out.valid, out.meta.weight,
+                out.meta.count, res.y)
+
+    return step
+
+
+def _root_step(capacity: int, num_strata: int, allocation: str, backend: str,
+               lvl: int, budget: int, hist_bins: int = 64):
+    """The WHS root without tenants → the root core's outputs."""
+
+    def step(key, t, values, strata, valid, w_in, c_in, sample_size):
+        prio = prng.uniform(_node_key(key, t, lvl, 0), (capacity,))
+        outs, _ = _whs_root_core(values, strata, valid, w_in, c_in,
+                                 sample_size, prio, num_strata=num_strata,
+                                 allocation=allocation, backend=backend,
+                                 budget=budget, hist_bins=hist_bins)
+        return outs
+
+    return step
+
+
+def _plan_root_step(plan, num_strata: int, allocation: str, backend: str,
+                    lvl: int, budget: int):
+    """The WHS root with a tenant plan: the host threads the sketch state
+    through → ``(outs, qstate')``. The sketch uniforms come from the
+    root's key, as the scan engine draws them."""
+
+    def step(key, t, values, strata, valid, w_in, c_in, qstate,
+             sample_size):
+        k = _node_key(key, t, lvl, 0)
+        prio = prng.uniform(k, (values.shape[0],))
+        draws = tuple(None if d is None else d[0]
+                      for d in plan.draws(k[None]))
+        return _whs_root_core(values, strata, valid, w_in, c_in,
+                              sample_size, prio, num_strata=num_strata,
+                              allocation=allocation, backend=backend,
+                              budget=budget, plan=plan, qstate=qstate,
+                              draws=draws)
+
+    return step
+
+
+def _srs_node_step(capacity: int, num_strata: int, out_capacity: int,
+                   lvl: int):
+    """Loop engine, one SRS node: coin flips, compaction without weight
+    bookkeeping (SRS carries no metadata)."""
+    out_cap = min(out_capacity, capacity)
+
+    def step(key, t, ix, values, strata, valid, w_in, c_in, p_keep):
+        batch = IntervalBatch(values, strata, valid, StratumMeta(w_in, c_in))
+        selected = srs.srs_select(_node_key(key, t, lvl, ix), batch, p_keep)
+        v_c, s_c, n_sel = whs.pack_rows(values[None], strata[None],
+                                        selected[None], out_cap)
+        slot_valid = whs._slot_valid(n_sel, out_cap)[0]
+        return v_c[0], s_c[0], slot_valid, w_in, c_in, n_sel[0]
+
+    return step
+
+
+def _srs_root_step(capacity: int, num_strata: int, lvl: int,
+                   hist_bins: int = 64):
+    def step(key, t, values, strata, valid, w_in, c_in, p_keep, f_total):
+        prio = prng.uniform(_node_key(key, t, lvl, 0), (capacity,))
+        return _srs_root_core(values, strata, valid, p_keep, f_total, prio,
+                              num_strata=num_strata, hist_bins=hist_bins)
+
+    return step
+
+
+def _whs_level_step(n_nodes: int, capacity: int, num_strata: int,
+                    out_capacity: int, n_parents: int, allocation: str,
+                    backend: str, lvl: int, device):
+    """Level engine, one WHS level → ``_whs_level_core``'s outputs."""
+    child_of = torch.as_tensor(_child_routing(n_nodes, n_parents),
+                               device=device)
+
+    def step(key, t, values, strata, valid, w_in, c_in, sample_size):
+        prio = prng.uniform(_level_keys(key, t, lvl, n_nodes), (capacity,))
+        return _whs_level_core(values, strata, valid, w_in, c_in,
+                               sample_size, prio, num_strata=num_strata,
+                               out_capacity=out_capacity, child_of=child_of,
+                               allocation=allocation, backend=backend)
+
+    return step
+
+
+def _srs_level_step(n_nodes: int, capacity: int, num_strata: int,
+                    out_capacity: int, n_parents: int, lvl: int, device):
+    child_of = torch.as_tensor(_child_routing(n_nodes, n_parents),
+                               device=device)
+
+    def step(key, t, values, strata, valid, w_in, c_in, p_keep):
+        prio = prng.uniform(_level_keys(key, t, lvl, n_nodes), (capacity,))
+        return _srs_level_core(values, strata, valid, w_in, c_in, p_keep,
+                               prio, num_strata=num_strata,
+                               out_capacity=out_capacity, child_of=child_of)
+
+    return step
+
+
+def accumulate_epoch_accounting(tree, wall: float, counts, offered,
+                                n_fwd) -> None:
+    """Per-epoch accounting of ``HostTree.run_epoch`` and of
+    ``launch.analytics._CompiledDriver``: one dispatch; the epoch's wall time
+    attributed to levels in proportion to their buffer slots
+    (``n_nodes × capacity``, a static model: the epoch cannot see time
+    per level); ``offered`` (default ``counts``) the pre-truncation ingest
+    count; ``n_fwd`` the per-(tick, level) forwarded counts."""
+    tree.dispatch_count += 1
+    slots = [n * c for n, c in zip(tree.fanin, tree.capacities)]
+    total = float(sum(slots))
+    for lvl, s in enumerate(slots):
+        tree.level_time_s[lvl] += wall * s / total
+    tree.items_ingested += int(
+        np.asarray(counts if offered is None else offered).sum())
+    for lvl in range(len(tree.fanin) - 1):
+        tree.items_forwarded[lvl] += int(n_fwd[:, lvl].sum())
+
+
+def _host(t) -> np.ndarray:
+    return t.detach().cpu().numpy()
+
+
+class HostTree:
+    """The emulated edge topology driven tick by tick (default geometry:
+    the paper's testbed, 8 sources → 4 → 2 → 1 root), the counterpart of
+    ``repro.core.tree.HostTree``.
+
+    ``mode="whs"`` runs the weighted hierarchical sampler; ``mode="srs"``
+    the coin-flip baseline (per-level keep probability ``p_level`` so the
+    end-to-end fraction is ``fraction``). ``engine``:
+
+    * ``"level"`` — one step per level per tick over host ``LevelState``
+      buffers (a level's nodes stacked, selection flattened for the
+      ``pallas`` backends);
+    * ``"loop"``  — one step per node per tick over host ``Window``s;
+    * ``"scan"``  — the whole tree on the device, one epoch of ``T`` ticks
+      per ``run_epoch`` call.
+
+    All three draw priorities from the same ``(tick, level, node)`` keys
+    and run the same level and root math, so they agree bitwise on
+    identical ingest. ``dispatch_count`` counts step calls (epochs for
+    the scan engine); ``level_time_s`` the host-measured time of each
+    level's steps (the scan engine apportions an epoch by buffer slots).
+    The steps run on ``device`` (``"cuda"`` by default; raises without a
+    card unless ``"cpu"`` is asked for).
+    """
+
+    def __init__(self, fanin: list[int], num_strata: int, capacity: int,
+                 sample_sizes: list[int],
+                 interval_ticks: list[int] | None = None,
+                 allocation: str = "fair", seed: int = 0, mode: str = "whs",
+                 fraction: float | None = None, engine: str = "level",
+                 sampler_backend: str = "topk", queries=None,
+                 max_sample_sizes: list[int] | None = None,
+                 route_keys: int | None = None, device="cuda"):
+        if fanin[-1] != 1:
+            raise ValueError("the last level must be the single root")
+        if mode not in ("whs", "srs"):
+            raise ValueError(f"mode must be 'whs' or 'srs', got {mode!r}")
+        if engine not in ("level", "loop", "scan"):
+            raise ValueError(f"engine must be level, loop or scan, got "
+                             f"{engine!r}")
+        if route_keys is not None and engine != "scan":
+            raise ValueError("adaptive stratum routing needs the scan "
+                             "engine")
+        self.device = resolve_device(device)
+        self.fanin = list(fanin)
+        self.num_strata = num_strata
+        self.allocation = allocation
+        self.sample_sizes = list(sample_sizes)
+        self.max_sample_sizes = list(max_sample_sizes or sample_sizes)
+        if not all(m >= s for m, s in zip(self.max_sample_sizes,
+                                          self.sample_sizes)):
+            raise ValueError("max_sample_sizes must dominate the initial "
+                             "sample_sizes")
+        self.mode = mode
+        self.engine = engine
+        self.sampler_backend = sampler_backend
+        sampling.get_backend(sampler_backend)     # an unknown name raises
+        self.fraction = fraction
+        if queries is not None and not hasattr(queries, "evaluate"):
+            # A raw QueryRegistry becomes the single-tenant slotted plan
+            # the API compiles, so both front doors run the same plan.
+            from repro_torch.query.compiler import build_slotted_plan
+
+            queries = build_slotted_plan((("default", queries.specs),),
+                                         num_strata)
+        self.plan = queries
+        self._traced_plan = getattr(queries, "core", queries)
+        if self.plan is not None and mode != "whs":
+            raise ValueError("the query plane needs WHS stratum metadata "
+                             "(mode='whs')")
+        self.p_level = (float(fraction) ** (1.0 / len(fanin))
+                        if fraction is not None else 1.0)
+        interval_ticks = interval_ticks or [1] * len(fanin)
+        self.capacities = derive_capacities(fanin, capacity,
+                                            self.max_sample_sizes,
+                                            interval_ticks)
+        dev = self.device
+        if engine == "loop":
+            self.levels = [
+                [Window(self.capacities[lvl], num_strata, interval_ticks[lvl])
+                 for _ in range(n_nodes)]
+                for lvl, n_nodes in enumerate(fanin)]
+        elif engine == "level":
+            self.levels = [
+                LevelState(n_nodes, self.capacities[lvl], num_strata,
+                           interval_ticks[lvl])
+                for lvl, n_nodes in enumerate(fanin)]
+        else:
+            self.levels = None
+            self._state = TreeState.create(
+                fanin, self.capacities, num_strata, device=dev,
+                qstate=(self.plan.init_state(dev) if self.plan is not None
+                        else ()),
+                route=(torch.arange(int(route_keys), dtype=torch.int32,
+                                    device=dev) if route_keys else ()))
+            tick_fn = _build_scan_tick(
+                fanin, self.capacities, self.max_sample_sizes,
+                interval_ticks, num_strata, allocation, sampler_backend,
+                mode, self.p_level, fraction, dev, plan=self._traced_plan)
+            self._epoch_fn = _build_epoch_fn(tick_fn, fanin,
+                                             self.capacities,
+                                             plan=self._traced_plan)
+        if engine != "scan" and self.plan is not None:
+            self._qstate = self.plan.init_state(dev)
+            self._plan_step = _plan_root_step(
+                self.plan, num_strata, allocation, sampler_backend,
+                len(fanin) - 1, int(self.max_sample_sizes[-1]))
+        self._steps: dict = {}
+        self._key = prng.PRNGKey(seed, device=dev)
+        self.items_forwarded = [0] * len(fanin)
+        self.items_ingested = 0
+        self.level_time_s = [0.0] * len(fanin)
+        self.dispatch_count = 0
+        self.results: list[dict] = []
+
+    @classmethod
+    def from_spec(cls, spec, engine: str = "level",
+                  device="cuda") -> "HostTree":
+        """A ``HostTree`` from a ``repro_torch.api.PipelineSpec``, resolved
+        as ``compile`` resolves it (sample sizes, ceilings, intervals,
+        the tenant plan), so the two front doors agree bitwise."""
+        from repro_torch.api.spec import resolve
+
+        r = resolve(spec)
+        return cls(
+            fanin=list(spec.topology.fanin),
+            num_strata=spec.topology.num_strata,
+            capacity=spec.topology.capacity,
+            sample_sizes=list(r.sample_sizes),
+            interval_ticks=list(r.interval_ticks),
+            allocation=spec.sampler.allocation, seed=spec.seed,
+            mode=spec.sampler.mode, fraction=spec.sampler.fraction,
+            engine=engine, sampler_backend=spec.sampler.backend,
+            queries=r.plan, max_sample_sizes=list(r.max_sample_sizes),
+            route_keys=((spec.strata.num_keys or None)
+                        if engine == "scan" else None),
+            device=device)
+
+    def ingest(self, node: int, values: np.ndarray,
+               strata: np.ndarray) -> None:
+        """Source → level-0 node delivery."""
+        if self.engine == "scan":
+            raise RuntimeError("engine='scan' ingests per epoch: use "
+                               "run_epoch(t0, values, strata, counts)")
+        self.items_ingested += len(values)
+        if self.engine == "loop":
+            self.levels[0][node].deliver(values, strata)
+        else:
+            self.levels[0].deliver(node, values, strata)
+
+    def tick(self, t: int) -> None:
+        """Advance one global tick: flush every due window, push upstream."""
+        if self.engine == "scan":
+            raise RuntimeError("engine='scan' advances per epoch: use "
+                               "run_epoch(t0, values, strata, counts)")
+        if self.engine == "loop":
+            self._tick_loop(t)
+        else:
+            self._tick_level(t)
+
+    # ------------------------------------------------------------- scan --
+    def run_epoch(self, t0: int, values: np.ndarray, strata: np.ndarray,
+                  counts: np.ndarray,
+                  offered: np.ndarray | None = None) -> None:
+        """Advance ``T`` ticks (``t0 .. t0+T-1``) in one epoch.
+
+        ``values``/``strata`` are ``[T, fanin[0], width]`` tick-major
+        padded ingest (``data.stream.batch_ingest``), ``counts`` the
+        per-(tick, node) item counts; ``offered`` the pre-truncation
+        counts for ``items_ingested`` (default ``counts``). The ingest
+        moves to the device in one copy; the stacked root results come
+        back in one read."""
+        if self.engine != "scan":
+            raise RuntimeError("run_epoch requires engine='scan'")
+        epoch_ticks, n0, _ = np.shape(values)
+        if n0 != self.fanin[0]:
+            raise ValueError("ingest rows must match level-0 nodes")
+        dev = self.device
+        budgets = torch.tensor([float(s) for s in self.sample_sizes],
+                               dtype=torch.float32, device=dev)
+        t_start = time.perf_counter()
+        self._state, outs = self._epoch_fn(
+            self._state, self._key, int(t0), budgets,
+            torch.as_tensor(values, dtype=torch.float32, device=dev),
+            torch.as_tensor(strata, dtype=torch.int32, device=dev),
+            torch.as_tensor(counts, dtype=torch.int32, device=dev))
+        outs = [_host(o) for o in outs[1:]]       # one device→host sync
+        if self.plan is not None:
+            root_ok, se, sv, me, mv, nsel, hist, ans, bnd, n_fwd = outs
+            ans, bnd = self.plan.compact(ans), self.plan.compact(bnd)
+        else:
+            root_ok, se, sv, me, mv, nsel, hist, n_fwd = outs
+            ans = bnd = None
+        wall = time.perf_counter() - t_start
+        accumulate_epoch_accounting(self, wall, counts, offered, n_fwd)
+        for i in range(epoch_ticks):
+            if root_ok[i]:
+                row = dict(tick=t0 + i, sum=float(se[i]),
+                           sum_var=float(sv[i]), mean=float(me[i]),
+                           mean_var=float(mv[i]), n_sampled=int(nsel[i]),
+                           histogram=hist[i])
+                if ans is not None:
+                    row["answers"], row["bounds"] = ans[i], bnd[i]
+                self.results.append(row)
+
+    def reset_query_state(self) -> None:
+        """Empty the standing queries' sketch state (drivers call this
+        after warmup, so continuous answers cover the measured ticks)."""
+        if self.plan is None:
+            return
+        if self.engine == "scan":
+            self._state = self._state._replace(
+                qstate=self.plan.init_state(self.device))
+        else:
+            self._qstate = self.plan.init_state(self.device)
+
+    def set_route(self, route) -> None:
+        """Install a new key→stratum table (adaptive stratification): a
+        same-shape edit of the scan state, read by the next epoch."""
+        if self.engine != "scan":
+            raise RuntimeError("routing lives in the scan state")
+        if isinstance(self._state.route, tuple):
+            raise RuntimeError("tree was built without route_keys")
+        r = torch.as_tensor(np.asarray(route), dtype=torch.int32,
+                            device=self.device)
+        if r.shape != self._state.route.shape:
+            raise ValueError("the route table's shape is fixed")
+        self._state = self._state._replace(route=r)
+
+    def set_sample_sizes(self, sizes) -> None:
+        """Move the applied per-level budgets (the controller's knob),
+        clamped to ``[1, max_sample_sizes]``: the buffers upstream were
+        sized for the ceilings."""
+        if len(sizes) != len(self.fanin):
+            raise ValueError("sizes must have one entry per level")
+        self.sample_sizes = [min(max(float(s), 1.0), float(m))
+                             for s, m in zip(sizes, self.max_sample_sizes)]
+
+    # --------------------------------------------------------- helpers --
+    def _step(self, factory, *args):
+        """The step of ``factory`` for these static arguments, built once."""
+        key = (factory.__name__,) + args
+        step = self._steps.get(key)
+        if step is None:
+            step = self._steps[key] = factory(*args)
+        return step
+
+    def _on_device(self, values, strata, valid, w_in, c_in):
+        dev = self.device
+        return (torch.as_tensor(values, dtype=torch.float32, device=dev),
+                torch.as_tensor(strata, dtype=torch.int32, device=dev),
+                torch.as_tensor(valid, dtype=torch.bool, device=dev),
+                torch.as_tensor(w_in, dtype=torch.float32, device=dev),
+                torch.as_tensor(c_in, dtype=torch.float32, device=dev))
+
+    def _f32(self, x) -> torch.Tensor:
+        return torch.tensor(float(x), dtype=torch.float32,
+                            device=self.device)
+
+    def _root_result(self, t: int, outs) -> dict:
+        """Host-side result row from a root step's outputs."""
+        se, sv, me, mv, nsel, hist = (_host(o) for o in outs[:6])
+        row = dict(tick=t, sum=float(se), sum_var=float(sv), mean=float(me),
+                   mean_var=float(mv), n_sampled=int(nsel), histogram=hist)
+        if len(outs) > 6:
+            ans, bnd = _host(outs[6]), _host(outs[7])
+            ans, bnd = self.plan.compact(ans), self.plan.compact(bnd)
+            row["answers"], row["bounds"] = ans, bnd
+        return row
+
+    def _run_root(self, lvl: int, t: int, values, strata, valid, w_in, c_in,
+                  capacity: int):
+        if self.mode == "srs":
+            step = self._step(_srs_root_step, capacity, self.num_strata, lvl)
+            return step(self._key, t, values, strata, valid, w_in, c_in,
+                        self._f32(self.p_level), self._f32(self.fraction))
+        size = self._f32(self.sample_sizes[lvl])
+        if self.plan is not None:
+            outs, self._qstate = self._plan_step(
+                self._key, t, values, strata, valid, w_in, c_in,
+                self._qstate, size)
+            return outs
+        step = self._step(_root_step, capacity, self.num_strata,
+                          self.allocation, self.sampler_backend, lvl,
+                          int(self.max_sample_sizes[lvl]))
+        return step(self._key, t, values, strata, valid, w_in, c_in, size)
+
+    # ------------------------------------------------------------- loop --
+    def _tick_loop(self, t: int) -> None:
+        for lvl, nodes in enumerate(self.levels):
+            is_root = lvl == len(self.levels) - 1
+            n_parents = self.fanin[lvl + 1] if not is_root else 1
+            for ix, win in enumerate(nodes):
+                if not win.due(t) or win.fill == 0:
+                    continue
+                flushed = win.flush()
+                t0 = time.perf_counter()
+                args = self._on_device(*flushed)
+                if is_root:
+                    outs = self._run_root(lvl, t, *args, win.capacity)
+                    self.dispatch_count += 1
+                    row = self._root_result(t, outs)     # reads back: syncs
+                    self.level_time_s[lvl] += time.perf_counter() - t0
+                    self.results.append(row)
+                    continue
+                out_cap = self.max_sample_sizes[lvl]
+                if self.mode == "srs":
+                    step = self._step(_srs_node_step, win.capacity,
+                                      self.num_strata, out_cap, lvl)
+                    outs = step(self._key, t, ix, *args,
+                                self._f32(self.p_level))
+                else:
+                    step = self._step(_node_step, win.capacity,
+                                      self.num_strata, out_cap,
+                                      self.allocation, self.sampler_backend,
+                                      lvl)
+                    outs = step(self._key, t, ix, *args,
+                                self._f32(self.sample_sizes[lvl]))
+                self.dispatch_count += 1
+                ov, os_, oval, w_out, c_out = (_host(o) for o in outs[:5])
+                self.level_time_s[lvl] += time.perf_counter() - t0
+                n = int(oval.sum())
+                self.items_forwarded[lvl] += n
+                parent = self.levels[lvl + 1][ix % n_parents]
+                parent.deliver(ov[:n], os_[:n], w_out, c_out)
+
+    # ------------------------------------------------------------ level --
+    def _tick_level(self, t: int) -> None:
+        for lvl, state in enumerate(self.levels):
+            is_root = lvl == len(self.levels) - 1
+            if not state.due(t) or int(state.fill.sum()) == 0:
+                continue
+            flushed = state.flush_all()
+            t0 = time.perf_counter()
+            values, strata, valid, w_in, c_in = self._on_device(*flushed)
+            if is_root:
+                # The root is a single node: the root step on its row.
+                outs = self._run_root(lvl, t, values[0], strata[0], valid[0],
+                                      w_in[0], c_in[0], state.capacity)
+                self.dispatch_count += 1
+                row = self._root_result(t, outs)         # reads back: syncs
+                self.level_time_s[lvl] += time.perf_counter() - t0
+                self.results.append(row)
+                continue
+            n_parents = self.fanin[lvl + 1]
+            out_cap = self.max_sample_sizes[lvl]
+            if self.mode == "srs":
+                step = self._step(_srs_level_step, state.n_nodes,
+                                  state.capacity, self.num_strata, out_cap,
+                                  n_parents, lvl, self.device)
+                outs = step(self._key, t, values, strata, valid, w_in, c_in,
+                            self._f32(self.p_level))
+            else:
+                step = self._step(_whs_level_step, state.n_nodes,
+                                  state.capacity, self.num_strata, out_cap,
+                                  n_parents, self.allocation,
+                                  self.sampler_backend, lvl, self.device)
+                outs = step(self._key, t, values, strata, valid, w_in, c_in,
+                            self._f32(self.sample_sizes[lvl]))
+            self.dispatch_count += 1
+            (packed_v, packed_s, n_deliv, w_out, c_out, present,
+             n_fwd) = (_host(o) for o in outs)
+            self.level_time_s[lvl] += time.perf_counter() - t0
+            self.items_forwarded[lvl] += int(n_fwd.sum())
+            parent = self.levels[lvl + 1]
+            parent.deliver_packed(packed_v, packed_s, n_deliv)
+            parent.fold_meta(np.arange(state.n_nodes) % n_parents, present,
+                             w_out, c_out)

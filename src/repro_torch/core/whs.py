@@ -136,9 +136,7 @@ def _truncation_corrected_meta(slot_valid, result_y, meta: StratumMeta, seg,
     when every selected item fits (``Y/Y == 1``); otherwise the extra
     thinning is folded into the weights (``W·Y/kept``) and ``C^out`` is
     the kept count."""
-    kept = sampling.segment_sum(
-        torch.ones(slot_valid.shape, dtype=torch.float32,
-                   device=slot_valid.device).reshape(-1),
+    kept = sampling.segment_count(
         torch.where(slot_valid, seg, num_segments).reshape(-1),
         num_segments).reshape(meta.weight.shape)
     factor = torch.where(kept > 0.0, result_y / torch.clamp_min(kept, 1.0),

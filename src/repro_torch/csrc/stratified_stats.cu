@@ -11,8 +11,11 @@
 // and accumulates one-hot matmuls into one output block. Blocks on the
 // card run in no order, so each block here reduces a tile of 2,048 items
 // to per-stratum partials (registers, then a fixed shuffle tree, then the
-// warps in order) and a second one-block pass adds the partials in block
-// order. Counts are integers, so exact; the float sums are the same from
+// warps in order) and a second pass adds the partials in block order, one
+// thread per stratum. The strata are taken 32 at a time (the shared
+// staging holds 32), so any number of them works, at a cost that grows
+// with it; a stratum's sums are added in the same order whatever their
+// number. Counts are integers, so exact; the float sums are the same from
 // run to run because no float is added with an atomic.
 
 #include <cuda_runtime.h>
@@ -20,7 +23,7 @@
 
 namespace {
 
-constexpr int kMaxStrata = 32;
+constexpr int kChunk = 32;                // strata staged per pass
 constexpr int kThreads = 256;
 constexpr int kItems = 8;                 // per thread
 constexpr int kTile = kThreads * kItems;  // TILE in ops.py
@@ -32,8 +35,8 @@ stratified_stats_partial(const float* __restrict__ values,
                          const int* __restrict__ strata,
                          const uint8_t* __restrict__ mask, int m, int X,
                          float* sums, int* cnts) {
-  __shared__ float ws1[kWarps][kMaxStrata], ws2[kWarps][kMaxStrata];
-  __shared__ int wc[kWarps][kMaxStrata];
+  __shared__ float ws1[kWarps][kChunk], ws2[kWarps][kChunk];
+  __shared__ int wc[kWarps][kChunk];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int base = blockIdx.x * kTile;
   float xv[kItems];
@@ -45,48 +48,54 @@ stratified_stats_partial(const float* __restrict__ values,
     xv[j] = ok ? values[k] : 0.f;
     xs[j] = ok ? strata[k] : -1;
   }
-  for (int s = 0; s < X; ++s) {
-    float a = 0.f, b = 0.f;
-    int c = 0;
+  for (int s0 = 0; s0 < X; s0 += kChunk) {
+    const int n = min(kChunk, X - s0);
+    for (int q = 0; q < n; ++q) {
+      const int s = s0 + q;
+      float a = 0.f, b = 0.f;
+      int c = 0;
 #pragma unroll
-    for (int j = 0; j < kItems; ++j) {
-      if (xs[j] == s) {
-        a = a + xv[j];
-        b = b + xv[j] * xv[j];
-        ++c;
+      for (int j = 0; j < kItems; ++j) {
+        if (xs[j] == s) {
+          a = a + xv[j];
+          b = b + xv[j] * xv[j];
+          ++c;
+        }
+      }
+      for (int off = 16; off > 0; off >>= 1) {
+        a = a + __shfl_down_sync(kFull, a, off);
+        b = b + __shfl_down_sync(kFull, b, off);
+        c += __shfl_down_sync(kFull, c, off);
+      }
+      if (lane == 0) {
+        ws1[warp][q] = a;
+        ws2[warp][q] = b;
+        wc[warp][q] = c;
       }
     }
-    for (int off = 16; off > 0; off >>= 1) {
-      a = a + __shfl_down_sync(kFull, a, off);
-      b = b + __shfl_down_sync(kFull, b, off);
-      c += __shfl_down_sync(kFull, c, off);
+    __syncthreads();
+    if (tid < n) {
+      float a = 0.f, b = 0.f;
+      int c = 0;
+      for (int w = 0; w < kWarps; ++w) {
+        a = a + ws1[w][tid];
+        b = b + ws2[w][tid];
+        c += wc[w][tid];
+      }
+      const size_t o = (size_t)blockIdx.x * X + s0 + tid;
+      sums[2 * o] = a;
+      sums[2 * o + 1] = b;
+      cnts[o] = c;
     }
-    if (lane == 0) {
-      ws1[warp][s] = a;
-      ws2[warp][s] = b;
-      wc[warp][s] = c;
-    }
-  }
-  __syncthreads();
-  if (tid < X) {
-    float a = 0.f, b = 0.f;
-    int c = 0;
-    for (int w = 0; w < kWarps; ++w) {
-      a = a + ws1[w][tid];
-      b = b + ws2[w][tid];
-      c += wc[w][tid];
-    }
-    const size_t o = (size_t)blockIdx.x * X + tid;
-    sums[2 * o] = a;
-    sums[2 * o + 1] = b;
-    cnts[o] = c;
+    __syncthreads();
   }
 }
 
+// grid ceil(X / 256), block 256: one thread per stratum.
 __global__ void stratified_stats_final(const float* __restrict__ sums,
                                        const int* __restrict__ cnts,
                                        int blocks, int X, float* out) {
-  const int s = threadIdx.x;
+  const int s = blockIdx.x * blockDim.x + threadIdx.x;
   if (s >= X) return;
   float a = 0.f, b = 0.f;
   int c = 0;
@@ -117,8 +126,8 @@ int stratified_stats_launch(const float* values, const int* strata,
       values, strata, mask, m, X, sums, cnts);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  stratified_stats_final<<<1, kMaxStrata, 0, stream>>>(sums, cnts, blocks, X,
-                                                       out);
+  stratified_stats_final<<<(X + kThreads - 1) / kThreads, kThreads, 0,
+                           stream>>>(sums, cnts, blocks, X, out);
   return static_cast<int>(cudaGetLastError());
 }
 

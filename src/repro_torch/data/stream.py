@@ -1,10 +1,18 @@
 """Synthetic sub-streams and epoch ingest — the paper's §V workloads.
 
-The port's own copy of the parts of ``repro.data.stream`` the main path
-uses: the sub-stream description, the paper's Gaussian mix
-A(μ=10, σ=5), B(1e3, 50), C(1e4, 500), D(1e5, 5e3), one source node
-drawing from a numpy generator, and the tick-major epoch ingest layout.
-Draws are numpy's, so one seed gives the same items to both packages.
+The port's own copy of ``repro.data.stream``'s streams:
+
+* Gaussian sub-streams A(μ=10, σ=5), B(1e3, 50), C(1e4, 500),
+  D(1e5, 5e3);
+* Poisson sub-streams A(λ=10), B(100), C(1000), D(10000), and the skewed
+  mix with λ_D = 1e7 (``SKEW_SHARES`` gives its arrival shares);
+* ``taxi_like``: lognormal fares per zone (a stand-in for DEBS'15 NYC);
+* ``pollution_like``: slow-moving AR(1) sensor values (a stand-in for
+  the Brasov / CityBench sensors).
+
+One source node draws from a numpy generator, in the reference's order,
+so one seed gives the same items to both packages; then the tick-major
+epoch ingest layout.
 """
 from __future__ import annotations
 
@@ -14,11 +22,22 @@ import numpy as np
 
 GAUSSIAN = [(10.0, 5.0), (1_000.0, 50.0), (10_000.0, 500.0),
             (100_000.0, 5_000.0)]
+POISSON = [10.0, 100.0, 1_000.0, 10_000.0]
+POISSON_SKEWED = [10.0, 100.0, 1_000.0, 10_000_000.0]
+
+# §V-D arrival-rate settings (items/sec for sub-streams A:B:C:D)
+RATE_SETTINGS = {
+    "setting1": (50_000, 25_000, 12_500, 625),
+    "setting2": (25_000, 25_000, 25_000, 25_000),
+    "setting3": (625, 12_500, 25_000, 50_000),
+}
+# §V-E skew: share of items per sub-stream
+SKEW_SHARES = (0.80, 0.1989, 0.001, 0.0001)
 
 
 @dataclasses.dataclass
 class SubstreamSpec:
-    dist: str           # "gaussian" (the only kind this copy draws)
+    dist: str           # gaussian | poisson | taxi | pollution
     params: tuple
     rate: float         # items per tick
 
@@ -27,12 +46,31 @@ def paper_gaussian(rates=(1000, 1000, 1000, 1000)) -> list[SubstreamSpec]:
     return [SubstreamSpec("gaussian", g, r) for g, r in zip(GAUSSIAN, rates)]
 
 
+def paper_poisson(rates=(1000, 1000, 1000, 1000),
+                  skewed=False) -> list[SubstreamSpec]:
+    lam = POISSON_SKEWED if skewed else POISSON
+    return [SubstreamSpec("poisson", (l,), r) for l, r in zip(lam, rates)]
+
+
+def taxi_like(num_zones: int = 4, rate: float = 1000) -> list[SubstreamSpec]:
+    return [SubstreamSpec("taxi", (2.3 + 0.2 * z, 0.5), rate * (0.5 + z))
+            for z in range(num_zones)]
+
+
+def pollution_like(num_sensors: int = 4,
+                   rate: float = 200) -> list[SubstreamSpec]:
+    return [SubstreamSpec("pollution", (40.0 + 10 * s, 2.0), rate)
+            for s in range(num_sensors)]
+
+
 class StreamSource:
     """One source node emitting a mix of sub-streams each tick."""
 
     def __init__(self, specs: list[SubstreamSpec], seed: int = 0):
         self.specs = specs
         self.rng = np.random.default_rng(seed)
+        # The pollution sensors' AR(1) levels, one per sub-stream.
+        self._ar_state = np.array([p.params[0] for p in specs], np.float64)
 
     def tick(self) -> tuple[np.ndarray, np.ndarray]:
         """→ (values f32[n], strata i32[n]) for one tick."""
@@ -41,10 +79,19 @@ class StreamSource:
             n = self.rng.poisson(sp.rate)
             if n == 0:
                 continue
-            if sp.dist != "gaussian":
-                raise ValueError(f"sub-stream kind {sp.dist!r} is not "
-                                 f"ported; this copy draws 'gaussian'")
-            v = self.rng.normal(sp.params[0], sp.params[1], n)
+            if sp.dist == "gaussian":
+                v = self.rng.normal(sp.params[0], sp.params[1], n)
+            elif sp.dist == "poisson":
+                v = self.rng.poisson(sp.params[0], n).astype(np.float64)
+            elif sp.dist == "taxi":
+                v = self.rng.lognormal(sp.params[0], sp.params[1], n)
+            elif sp.dist == "pollution":
+                self._ar_state[i] = (0.98 * self._ar_state[i]
+                                     + 0.02 * sp.params[0]
+                                     + self.rng.normal(0, sp.params[1]))
+                v = self._ar_state[i] + self.rng.normal(0, 0.5, n)
+            else:
+                raise ValueError(f"unknown sub-stream kind {sp.dist!r}")
             vals.append(v)
             strs.append(np.full(n, i, np.int32))
         if not vals:

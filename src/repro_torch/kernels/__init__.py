@@ -14,6 +14,8 @@ LAUNCHES: dict[str, int] = {
     "stratified_stats": 0,
     "cms_update": 0,
     "quantile_compact": 0,
+    "sample_mask": 0,
+    "segment_sum": 0,
 }
 
 

@@ -16,7 +16,10 @@ from repro_torch.kernels.stratified_stats import ref
 # Items per block of the first pass (256 threads × 8 items each); must
 # match ``TILE`` in csrc/stratified_stats.cu.
 TILE = 2048
-MAX_STRATA = 32
+# The partial pass walks the strata 32 at a time, each a shuffle
+# reduction over the tile, so its cost grows with X; a flattened level of
+# the ``pallas`` backend has nodes × strata of them.
+MAX_STRATA = 4096
 
 
 def _lib():

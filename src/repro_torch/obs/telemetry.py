@@ -5,9 +5,9 @@ The counterpart of the ``EpochTelemetry`` leaf of
 quantities it computes anyway (flush sizes, forwarded counts, the root
 sampler's per-stratum ``c``/``y``), draws no randomness, and so leaves
 samples and answers bitwise the same with telemetry on or off.
-``snapshot`` reads them back with the derived signals. The per-tenant
-bound attribution (``tenant_rel_bounds``) and the straggler parts of the
-reference are not ported yet.
+``snapshot`` reads them back with the derived signals,
+``tenant_rel_bounds`` attributes them per tenant and ``reset`` zeroes
+them. The straggler parts of the reference wait for the serve plane.
 """
 from __future__ import annotations
 
@@ -118,3 +118,35 @@ def snapshot(state) -> dict | None:
         "late_shards": int(h["late_shards"]),
         "widened_windows": int(h["widened_windows"]),
     }
+
+
+def tenant_rel_bounds(pipeline, state) -> dict[str, float]:
+    """Per-tenant realized error bound from the telemetry leaves: each
+    tenant's worst CLT (sum/mean) slot of the window-mean relative bounds
+    (the attribution rule of ``query.compiler.tenant_rel_errors``, over
+    the cumulative trajectory instead of one window)."""
+    from repro_torch.query.compiler import tenant_clt_slots
+
+    snap = snapshot(state)
+    plan = getattr(pipeline, "plan", None)
+    if snap is None or plan is None:
+        return {}
+    public = plan.compact(np.asarray(snap["slot_rel_bound_mean"]))
+    out = {t: 0.0 for t in plan.tenant_names}
+    for tenant, off in tenant_clt_slots(plan):
+        out[tenant] = max(out[tenant], float(public[off]))
+    return out
+
+
+def reset(state):
+    """Zero a state's telemetry counters (same shapes, a new leaf):
+    drivers call this after warmup so the counters cover only the
+    measured stream. No-op when telemetry is off."""
+    tel = _leaf(state)
+    if tel is None:
+        return state
+    tel = EpochTelemetry(*(torch.zeros_like(v) for v in tel))
+    tree = getattr(state, "tree", None)
+    if tree is not None:
+        return state._replace(tree=tree._replace(telemetry=tel))
+    return state._replace(telemetry=tel)

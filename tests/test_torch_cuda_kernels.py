@@ -11,7 +11,9 @@ are compared bitwise; ``stratified_stats``' Σx and Σx² within
 ``SUMS_RTOL`` (a fixed-order block reduction against item order).
 ``cms_update`` and ``quantile_compact`` are compared bitwise, and the
 sketches that call them (``hh_update``, ``quantile_update``) launch them
-as often as their design says.
+as often as their design says. ``sample_mask`` and the ordered
+``segment_sum`` are compared bitwise too (the latter against the CPU's
+``index_add_``, on sums whose value depends on their order).
 """
 import numpy as np
 import pytest
@@ -26,6 +28,10 @@ from repro_torch.kernels.stratified_stats import ops as tss  # noqa: E402
 from repro_torch.kernels.stratified_stats import ref as tss_ref  # noqa: E402
 from repro_torch.kernels.sketch_update import ops as tsk  # noqa: E402
 from repro_torch.kernels.sketch_update import ref as tsk_ref  # noqa: E402
+from repro_torch.kernels.sample_mask import ops as tsm  # noqa: E402
+from repro_torch.kernels.sample_mask import ref as tsm_ref  # noqa: E402
+from repro_torch.kernels.segment_sum import ops as tseg  # noqa: E402
+from repro_torch.kernels.segment_sum import ref as tseg_ref  # noqa: E402
 from repro_torch.query import sketches as tsketch  # noqa: E402
 
 NAMES = ("keep", "values_c", "strata_c", "n_keep", "c", "reservoirs", "y",
@@ -125,6 +131,20 @@ def test_stratified_stats_kernel_matches_plain(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("m,x", [(4_400, 64), (20_000, 200), (3_000, 4096)])
+def test_stratified_stats_kernel_takes_many_strata(cuda_device, m, x):
+    """The ``pallas`` backend counts a flattened level's nodes × strata
+    composite strata: more than 32 of them on larger trees."""
+    vals, strata, valid, _, _, _ = _level(m + x, 1, m, x, 0.8, False)
+    t = [torch.from_numpy(a[0]) for a in (vals, strata, valid)]
+    want = tss_ref.stratified_stats(*t, x).numpy()
+    got = tss.stratified_stats(*(a.to(cuda_device) for a in t),
+                               x).cpu().numpy()
+    _bits(got[:, 0], want[:, 0], "count")
+    np.testing.assert_allclose(got[:, 1:], want[:, 1:], rtol=SUMS_RTOL)
+
+
+@pytest.mark.cuda
 def test_pallas_fused_select_launches_kernel_at_any_size(cuda_device):
     # Beyond the reference's 1 << 22 one-hot limit the backend still
     # launches fused_select once, and agrees with the plain version.
@@ -205,3 +225,125 @@ def test_sketch_updates_launch_their_kernels(cuda_device):
     assert LAUNCHES["quantile_compact"] == 4
     for a, b in zip(hh + q, hh_cpu + q_cpu):
         _bits(a.cpu().numpy(), b.numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,x,ties", [(44_032, 16, False), (4_400, 8, False),
+                                     (2_200, 4, True), (1, 4, False),
+                                     (333, 2, True), (44_033, 32, True),
+                                     (5_000, 6144, False)])
+def test_sample_mask_kernel_matches_plain(cuda_device, m, x, ties):
+    rng = np.random.default_rng(m + x)
+    u = (rng.integers(0, 41, m) / 41.0 if ties else rng.random(m)).astype(
+        np.float32)
+    strata = rng.integers(0, x, m).astype(np.int32)
+    valid = rng.random(m) < 0.85
+    strata[~valid] = rng.integers(-3 * x, 3 * x, int((~valid).sum()))
+    res = torch.from_numpy(rng.integers(0, max(m // x, 2), x).astype(
+        np.float32))
+    res[0] = 0.0                               # keep none: τ = +2
+    res[-1] = float(m)                         # keep all: τ = −1
+    t = [torch.from_numpy(a) for a in (u, strata, valid)]
+    tau = tsm.thresholds_from_reservoirs(*t, res, x)
+    w = torch.from_numpy(rng.uniform(0.5, 9.0, x).astype(np.float32))
+    want = tsm_ref.sample_mask(*t, tau, w)
+    reset_launches()
+    got = tsm.sample_mask(*(a.to(cuda_device) for a in t),
+                          tau.to(cuda_device), w.to(cuda_device))
+    torch.cuda.synchronize()
+    assert LAUNCHES["sample_mask"] == 1
+    for g, wnt, name in zip(got, want, ("keep", "w")):
+        _bits(g.cpu().numpy(), wnt.numpy(), name)
+    tau_card = tsm.thresholds_from_reservoirs(
+        *(a.to(cuda_device) for a in t), res.to(cuda_device), x)
+    _bits(tau_card.cpu().numpy(), tau.numpy(), "tau")
+
+
+def _ordered_inputs(rng, rows, m, x):
+    """Mixed magnitudes from 1e-3 to 1e6 with alternating signs, so every
+    reordering of a segment's adds changes its f32 sum; some ids fall
+    outside [0, X)."""
+    mag = 10.0 ** rng.uniform(-3, 6, (rows, m))
+    sign = np.where(np.arange(m) % 2 == 0, 1.0, -1.0)
+    vals = (mag * sign).astype(np.float32)
+    ids = rng.integers(-2, x + 2, (rows, m)).astype(np.int64)
+    return torch.from_numpy(vals), torch.from_numpy(ids)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,m,x", [(1, 1, 1), (1, 2_200, 4),
+                                      (4, 11_008, 4), (1, 44_032, 16),
+                                      (2, 4_400, 64), (3, 777, 33),
+                                      (1, 64, 1)])
+def test_segment_sum_kernel_matches_cpu_order(cuda_device, rows, m, x):
+    rng = np.random.default_rng(rows * m + x)
+    vals, ids = _ordered_inputs(rng, rows, m, x)
+    want = tseg_ref.segment_sum(vals, ids, x)
+    reset_launches()
+    got = tseg.segment_sum(vals.to(cuda_device), ids.to(cuda_device), x)
+    torch.cuda.synchronize()
+    assert LAUNCHES["segment_sum"] == 1
+    _bits(got.cpu().numpy(), want.numpy())
+    # int32 ids go in as they are; int64 ids that would wrap into [0, X)
+    # if narrowed to int32 are still dropped
+    got32 = tseg.segment_sum(vals.to(cuda_device),
+                             ids.to(torch.int32).to(cuda_device), x)
+    wide = torch.where(ids % 3 == 0, ids + (1 << 32), ids)
+    got_wide = tseg.segment_sum(vals.to(cuda_device), wide.to(cuda_device), x)
+    torch.cuda.synchronize()
+    assert LAUNCHES["segment_sum"] == 3
+    _bits(got32.cpu().numpy(), want.numpy())
+    _bits(got_wide.cpu().numpy(),
+          tseg_ref.segment_sum(vals, wide, x).numpy())
+    # integer sums keep PyTorch's exact path: no launch
+    counts = tseg.segment_sum(torch.ones_like(ids, device=cuda_device),
+                              ids.to(cuda_device), x)
+    assert LAUNCHES["segment_sum"] == 3
+    _bits(counts.cpu().numpy(),
+          tseg_ref.segment_sum(torch.ones_like(ids), ids, x).numpy())
+
+
+@pytest.mark.cuda
+def test_pallas_backend_and_neyman_launch_their_kernels(cuda_device):
+    """A flattened level through the ``pallas`` backend: one
+    ``stratified_stats`` call (2 launches), one ``sample_mask`` launch,
+    and with neyman the stds' two float sums through ``segment_sum``;
+    bitwise the CPU run."""
+    from repro_torch.core import whs as twhs
+
+    vals, strata, valid, u, w_in, c_in = _level(9, 4, 11008, 4, 0.73, True)
+    cpu = [torch.from_numpy(a) for a in (vals, strata, valid, w_in, c_in)]
+    size = torch.tensor(1100.0)
+    kw = dict(allocation="neyman", backend="pallas",
+              priorities=torch.from_numpy(u))
+    want = twhs.level_whsamp(None, *cpu, size, 4, **kw)
+    reset_launches()
+    got = twhs.level_whsamp(None, *(a.to(cuda_device) for a in cpu),
+                            size.to(cuda_device), 4,
+                            **dict(kw, priorities=kw["priorities"].to(
+                                cuda_device)))
+    torch.cuda.synchronize()
+    assert (LAUNCHES["stratified_stats"], LAUNCHES["sample_mask"],
+            LAUNCHES["segment_sum"]) == (1, 1, 2)
+    for name in ("selected", "c", "y", "reservoir"):
+        _bits(getattr(got, name).cpu().numpy(),
+              getattr(want, name).numpy(), name)
+    _bits(got.meta.weight.cpu().numpy(), want.meta.weight.numpy(), "w")
+
+
+@pytest.mark.cuda
+def test_pallas_backend_on_a_wide_level(cuda_device):
+    """8 nodes × 8 strata: 64 composite strata in one flattened level."""
+    from repro_torch.core import whs as twhs
+
+    vals, strata, valid, u, w_in, c_in = _level(10, 8, 2048, 8, 0.9, False)
+    cpu = [torch.from_numpy(a) for a in (vals, strata, valid, w_in, c_in)]
+    size = torch.tensor(300.0)
+    want = twhs.level_whsamp(None, *cpu, size, 8, backend="pallas",
+                             priorities=torch.from_numpy(u))
+    got = twhs.level_whsamp(None, *(a.to(cuda_device) for a in cpu),
+                            size.to(cuda_device), 8, backend="pallas",
+                            priorities=torch.from_numpy(u).to(cuda_device))
+    for name in ("selected", "c", "y", "reservoir"):
+        _bits(getattr(got, name).cpu().numpy(),
+              getattr(want, name).numpy(), name)

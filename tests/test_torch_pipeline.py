@@ -184,8 +184,10 @@ def test_batch_ingest_matches_reference():
         _bits(getattr(got, f), getattr(want, f), f)
     assert (got.exact_sum, got.exact_count) == (want.exact_sum,
                                                 want.exact_count)
-    with pytest.raises(ValueError, match="not ported"):
-        S.StreamSource([S.SubstreamSpec("poisson", (10.0,), 5)]).tick()
+    # Every kind of the reference is drawn (tests/test_torch_analytics.py
+    # holds them against the reference); an unknown kind raises.
+    with pytest.raises(ValueError, match="unknown sub-stream kind"):
+        S.StreamSource([S.SubstreamSpec("uniform", (10.0,), 5)]).tick()
 
 
 def test_spec_round_trip_and_unported_parts():
@@ -198,9 +200,12 @@ def test_spec_round_trip_and_unported_parts():
     tenanted = dict(jspec.to_dict(), tenants=[{"name": "t", "queries": []}])
     with pytest.raises(P.SpecError, match="registers no queries"):
         P.PipelineSpec.from_dict(tenanted)
-    with pytest.raises(ValueError, match="ROADMAP.md Queue 2 item 6"):
-        P.compile(P.PipelineSpec(sampler=P.SamplerSpec(backend="pallas")),
-                  device="cpu")
+    # The ``pallas`` backend is ported (ROADMAP Queue 2 item 6): compile
+    # accepts it; an unknown backend is refused by the spec.
+    assert P.compile(P.PipelineSpec(sampler=P.SamplerSpec(backend="pallas")),
+                     device="cpu").spec.sampler.backend == "pallas"
+    with pytest.raises(P.SpecError, match="sampler.backend"):
+        P.SamplerSpec(backend="nope")
     with pytest.raises(P.SpecError, match="one entry per level"):
         P.compile(spec, device="cpu").clamp_budgets([1.0])
 
@@ -227,7 +232,9 @@ def _imports(path: Path) -> set[str]:
 def test_port_never_imports_jax_or_the_reference():
     files = sorted((REPO / "src" / "repro_torch").rglob("*.py"))
     assert REPO / "src" / "repro_torch" / "query" / "compiler.py" in files
-    files += [REPO / "chip_smoke.py", REPO / "examples" / "quickstart_torch.py"]
+    assert REPO / "src" / "repro_torch" / "launch" / "analytics.py" in files
+    files += [REPO / "chip_smoke.py", REPO / "examples" / "quickstart_torch.py",
+              REPO / "examples" / "taxi_analytics_torch.py"]
     assert len(files) > 20
     for path in files:
         for mod in _imports(path):
@@ -237,7 +244,12 @@ def test_port_never_imports_jax_or_the_reference():
             "repro_torch.kernels.fused_level_tick.ops, "
             "repro_torch.kernels.stratified_stats.ops, "
             "repro_torch.kernels.sketch_update.ops, "
-            "repro_torch.query.compiler, repro_torch.query.sketches\n"
+            "repro_torch.kernels.sample_mask.ops, "
+            "repro_torch.kernels.segment_sum.ops, "
+            "repro_torch.query.compiler, repro_torch.query.sketches, "
+            "repro_torch.launch.analytics, repro_torch.strata, "
+            "repro_torch.runtime.budget, repro_torch.obs.metrics, "
+            "repro_torch.obs.trace\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]\n"
             "print(bad); sys.exit(1 if bad else 0)")
