@@ -8,8 +8,8 @@ Drives ``src/repro_torch`` only (nothing of JAX or of the JAX package):
    CUDA kernels from ``src/repro_torch/csrc`` with ``nvcc`` for sm_90a,
    one ``nvcc`` per source, all at once;
 2. holds each kernel against its plain PyTorch version on the same
-   inputs — the sampler kernels at the paper testbed's shapes and at
-   their limit (cap 8192, 32 strata), saturated or not, front-packed or
+   inputs — the sampler kernels at the paper testbed's shapes, at 32
+   strata and above (64 per node), saturated or not, front-packed or
    not, with ``out_capacity`` below the keep count, with exact f32
    priority ties, for the fair, proportional and neyman allocations;
    ``cms_update`` at the tenants' shapes and the reference test's;
@@ -18,9 +18,13 @@ Drives ``src/repro_torch`` only (nothing of JAX or of the JAX package):
    multiple of its tile; ``sample_mask`` at the three shapes of the
    ``pallas`` path, with ties and sentinels, and at M = 1, 333, 44,033;
    the ordered ``segment_sum`` against the CPU's ``index_add_`` on sums
-   whose value depends on their order. Everything agrees bitwise except
-   ``stratified_stats``' Σx and Σx², held to ``SUMS_RTOL`` (a fixed-order
-   block reduction, not item order). Then the neyman reservoirs and masks
+   whose value depends on their order; ``flash_attention`` at the
+   reference test's shapes in f32 and bf16, at SmolLM-135M's prefill and
+   at Qwen3-4B's heads, against its plain version (``FLASH_F32_TOL``, or
+   one bf16 ulp) and the S×S oracle (``ORACLE_TOL``). Everything else
+   agrees bitwise except ``stratified_stats``' Σx and Σx², held to
+   ``SUMS_RTOL`` (a fixed-order block reduction, not item order). Then
+   the neyman reservoirs and masks
    of the ``argsort``, ``topk`` and ``pallas`` backends at the testbed's
    level shapes, card against CPU, bitwise;
 3. runs the paper testbed (fanin 4→2→1, capacity 11008, 4 strata,
@@ -42,13 +46,19 @@ Drives ``src/repro_torch`` only (nothing of JAX or of the JAX package):
    ``pallas``, ``level`` with ``topk`` and neyman, and the skewed Poisson
    mix with ``pallas``; each held bitwise against its CPU run (SUM,
    bound, forwarded counts, per-window ``n_sampled``), within 2σ of the
-   exact sum, launching ``sample_mask`` 3 times a tick on ``pallas``;
+   exact sum, launching ``sample_mask`` 3 times a tick on ``pallas``.
+   Then the model zoo's serving half: SmolLM-135M's prefill at full
+   width (bf16, B 8, S 2048) through ``make_prefill_step`` with the
+   flash kernel, launched once per layer (30), against the xla path, and
+   an f32 copy (B 1, S 512) card against CPU; the serve CLI
+   (``repro_torch.launch.serve``) at the reference's defaults, and one
+   f32 batch whose greedy tokens must be the CPU's;
 4. times each kernel at the main path's shapes beside its bound, its
    plain version and (where one exists) one PyTorch call computing the
    same function, as device time from the profiler's CUDA trace, times
    the WHS epochs with and without tenants and the SRS epochs, profiles
-   one epoch of each WHS path, and prints the analytics runs' items/s per
-   engine and backend;
+   one epoch of each WHS path, prints the analytics runs' items/s per
+   engine and backend, and the prefill's ms per forward and tokens/s;
 5. prints a ``kernels`` JSON line and, last, the ``ok`` JSON line.
 
 It exits non-zero, before printing any result, without a CUDA device or
@@ -57,6 +67,7 @@ without the repository's ``src`` beside it.
 from __future__ import annotations
 
 import json
+import statistics
 import subprocess
 import sys
 import time
@@ -89,6 +100,23 @@ RANK_SIGMAS = 3.0
 SKETCH_KINDS = ("quantile", "windowed_quantile")
 HH_KINDS = ("heavy_hitters", "decayed_heavy_hitters")
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
+# SmolLM-135M's prefill: B 8 at its published context length (HF config
+# max_position_embeddings 2048). The reference's prefill_32k shape
+# (B 32, S 32,768) is cut: its bf16 logits alone would be 103 GB.
+PREFILL_BATCH = 8
+PREFILL_SEQ = 2048
+# The pallas and xla prefill paths in bf16 round at different points (p
+# before P·V against the probabilities after normalisation) in each of 30
+# layers: the sound kernel reads argmax agreement 0.9516 and max abs
+# 0.1445 against a largest logit of 6.0. Planted faults
+# (tools/flash_planted_faults.py) read 0.0001 and 8.80 (kv head h % Hkv)
+# and 0.3741 and 5.59 (causal mask admitting one future token) on an
+# H100; the limits lie between. The tight check is the f32 copy (B 1,
+# S 512), card pallas, card xla and CPU, whose differences are f32 sums
+# in other orders through 30 layers: within 1e-3 of the largest logit.
+PREFILL_BF16_AGREE = 0.8
+PREFILL_BF16_REL = 0.1
+PREFILL_F32_REL = 1e-3
 # H100 SXM data sheet: f32 outside the tensor cores (the sheet gives no
 # rate for the int32 compares the kernels mostly do).
 ALU_OPS_PER_S = 67e12
@@ -103,6 +131,11 @@ REPLACES = {
     "cms_update": "src/repro/kernels/sketch_update/sketch_update.py:72",
     "quantile_compact":
         "src/repro/kernels/sketch_update/sketch_update.py:138",
+    "flash_attention":
+        "src/repro/kernels/flash_attention/flash_attention.py:70",
+    # not a TPU kernel: the card's counterpart of the reference's XLA
+    # scatter-add, float sums in item order
+    "segment_sum": "src/repro/core/sampling.py:70",
 }
 SOURCES = {
     "sample_mask": "src/repro_torch/csrc/sample_mask.cu",
@@ -111,6 +144,8 @@ SOURCES = {
     "stratified_stats": "src/repro_torch/csrc/stratified_stats.cu",
     "cms_update": "src/repro_torch/csrc/sketch_update.cu",
     "quantile_compact": "src/repro_torch/csrc/sketch_update.cu",
+    "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
+    "segment_sum": "src/repro_torch/csrc/segment_sum.cu",
 }
 
 
@@ -151,23 +186,106 @@ def loop_ms(fn, iters: int = 50) -> float:
     return e0.elapsed_time(e1) / iters
 
 
-def device_ms(fn, iters: int = 20) -> float:
-    """Mean device time of one call: the summed durations of the device
-    operations it launches, from the profiler's CUDA trace over ``iters``
-    calls after a warm-up."""
+PADS = 8     # spin kernels in a pad, the marker between counted runs
+PAD_GAP_US = 1000.0   # spins of one pad lie closer; pads lie 10 ms apart
+
+
+def _pad() -> None:
+    for _ in range(PADS):
+        torch.cuda._sleep(1000)
+    torch.cuda.synchronize()
+    time.sleep(0.01)
+
+
+def traced(fn, *calls: int):
+    """``(windows, walls)``: one profiler CUDA trace of runs of
+    ``calls[i]`` calls of ``fn``, each run between two pads (a cluster of
+    spin kernels and a pause). ``windows`` holds the device events
+    between each two consecutive pads seen, in order; ``walls`` each
+    run's wall seconds. On the card's machines a trace can lose device
+    events near its start and its end (the first launch of a kernel from
+    a library loaded outside PyTorch; often the first pad of a trace;
+    in a long process, whole short traces), and can carry one over from
+    the trace before it. So the
+    runs follow two uncounted calls, each between pads, and a last pad
+    closes the trace: when a pad is lost, the windows no longer match
+    the runs, which the caller sees from their event counts."""
+    walls = []
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(2):
+            _pad()
+            fn()
+        _pad()
+        for n in calls:
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            _pad()
+        _pad()
+    ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    pads: list[list[float]] = []
+    for r in sorted((e.time_range for e in ev if "spin_kernel" in e.name),
+                    key=lambda r: r.start):
+        if pads and r.start - pads[-1][1] < PAD_GAP_US:
+            pads[-1][1] = max(pads[-1][1], r.end)
+        else:
+            pads.append([r.start, r.end])
+    rest = [e for e in ev if "spin_kernel" not in e.name]
+    return [[e for e in rest if lo[1] <= e.time_range.start
+             and e.time_range.end <= hi[0]]
+            for lo, hi in zip(pads, pads[1:])], walls
+
+
+TRACES = 5   # traces per device time; the time is their median
+# kernel → (per-trace ms, traces rejected, CUDA-event ms or None) of each
+# timing
+SPREAD: dict[str, list] = {}
+
+
+def device_ms(fn, iters: int = 20, name: str | None = None) -> float:
+    """Device time of one call: the summed durations of the device
+    operations it launches, from profiler CUDA traces of a run of
+    ``iters`` calls and one of ``2 * iters`` after a warm-up; the median
+    over ``TRACES`` traces. A trace counts only if two consecutive
+    windows hold ``n`` and ``2n`` events, ``n`` a nonzero multiple of
+    ``iters`` (a trace that lost launches or a pad fails this); up to
+    ``2 * TRACES`` are taken. If none counts, the time comes from CUDA
+    events around the calls instead, which for a call shorter than its
+    host issue time is the issue time, and says so. With ``name``, the
+    per-trace times and the rejected traces' count are kept in
+    ``SPREAD[name]``."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == DeviceType.CUDA)
-    if us <= 0:
-        fail("the profiler saw no device time: kernel times not measured")
-    return us / iters / 1e3
+    seen, times = [], []
+    for _ in range(2 * TRACES):
+        windows, _ = traced(fn, iters, 2 * iters)
+        for one, two in zip(windows, windows[1:]):
+            if one and len(one) % iters == 0 and len(two) == 2 * len(one):
+                us = sum(e.time_range.elapsed_us() for e in one + two)
+                times.append(us / (3 * iters) / 1e3)
+                break
+        else:
+            seen.append([len(w) for w in windows])
+        if len(times) == TRACES:
+            break
+    if seen and name:
+        print(f"device_ms {name}: events between pads in the rejected "
+              f"traces: {seen}")
+    if times:
+        if name:
+            SPREAD.setdefault(name, []).append((times, len(seen), None))
+        return statistics.median(times)
+    ms = loop_ms(fn, iters)
+    print(f"device_ms: no trace held runs of {iters} and {2 * iters} calls "
+          f"(events between pads: {seen}); CUDA events give {ms:.4f} ms "
+          f"per call")
+    if name:
+        SPREAD.setdefault(name, []).append(([], len(seen), ms))
+    return ms
 
 
 # --------------------------------------------------------------- inputs --
@@ -213,10 +331,13 @@ def check_kernels(dev) -> dict:
         (2, 4096, 4, 700, 700, 0.8, False, "fair", True),      # exact ties
         (3, 4096, 6, 1000, 1000, 0.9, True, "proportional", False),
         (3, 4096, 6, 1000, 1000, 0.9, False, "neyman", False),
-        (3, 8192, 32, 1500, 1200, 0.95, False, "fair", True),  # the limit
+        (3, 8192, 32, 1500, 1200, 0.95, False, "fair", True),  # 32: ballots
         (3, 8192, 32, 1500, 1500, 1.0, True, "neyman", False),
         (2, 8192, 32, 2000, 2000, 0.9, True, "proportional", True),
         (2, 1024, 4, 0, 64, 1.0, True, "fair", False),         # zero budget
+        # above 32 strata per node: state in dynamic shared memory
+        (1, 11008, 64, 1100, 1100, 0.73, True, "fair", False),
+        (2, 8192, 64, 1500, 1200, 0.9, False, "neyman", True),
     ]
     for n, cap, x, budget, oc, fill, packed, alloc, ties in cases:
         cpu = level_inputs(rng, n, cap, x, fill, packed, ties)
@@ -524,7 +645,7 @@ def check_driver(A, dev, LAUNCHES, reset_launches) -> dict:
                 "stratified_stats": 3 * ticks if pallas else 0,
                 "segment_sum": (12 if alloc == "neyman" else 6) * ticks,
                 "fused_level_tick": 0, "fused_select": 0, "cms_update": 0,
-                "quantile_compact": 0}
+                "quantile_compact": 0, "flash_attention": 0}
         if launches != want:
             fail(f"driver {name}: launches {launches}, expected {want}")
         print(f"driver {name} ({dist}, {engine}, {backend}, {alloc}): SUM "
@@ -536,6 +657,235 @@ def check_driver(A, dev, LAUNCHES, reset_launches) -> dict:
               f"{cpu['throughput_items_s']:.4g} on the CPU")
         out[name] = (card, launches)
     return out
+
+
+# ------------------------------------------------------- flash attention --
+# (B, Hq, Hkv, S, D): the reference test's shapes, then SmolLM-135M's
+# prefill (the main path's launch) and Qwen3-4B's heads at S 4096.
+FLASH_SHAPES = ((1, 2, 1, 128, 64), (2, 4, 2, 256, 64), (1, 8, 2, 256, 128),
+                (2, 3, 3, 128, 32))
+SMOLLM_ATTN = (8, 9, 3, 2048, 64)
+QWEN3_ATTN = (1, 32, 8, 4096, 128)
+# Kernel vs plain version: f32 only the order of the f32 sums and exp's
+# last bit differ; bf16 both round p at the same values (same kv blocks,
+# same running max), so an output may land one bf16 ulp away, at its own
+# magnitude or, near zero, at the output's RMS magnitude.
+FLASH_F32_TOL = 1e-5
+# Against the S×S oracle, which rounds elsewhere: the reference test's
+# tolerances (tests/test_kernels.py).
+ORACLE_TOL = {torch.float32: 2e-3, torch.bfloat16: 2e-2}
+TC_FLOPS = 989e12    # H100 SXM data sheet: bf16 dense, tensor cores
+
+
+def flash_inputs(shape, dtype, seed, dev):
+    b, hq, hkv, s, d = shape
+    g = torch.Generator().manual_seed(seed)
+    return [torch.randn(sh, generator=g).to(dtype).to(dev)
+            for sh in ((b, hq, s, d), (b, hkv, s, d), (b, hkv, s, d))]
+
+
+def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """Spacing of bf16 numbers (8 significant bits) at |x|."""
+    e = torch.floor(torch.log2(x.abs().clamp_min(2.0 ** -126)))
+    return torch.exp2(e - 7)
+
+
+def flash_agrees(got: torch.Tensor, want: torch.Tensor) -> bool:
+    got, want = got.float(), want.float()
+    if not bool(torch.isfinite(got).all()):
+        return False
+    if want.shape != got.shape:
+        return False
+    err = (got - want).abs()
+    rms = want.pow(2).mean().sqrt()
+    return bool((err <= torch.maximum(bf16_ulp(want), bf16_ulp(rms))).all())
+
+
+def flash_bound(shape):
+    """(ms, by): the causal work's operations over the tensor cores' bf16
+    rate — 2 multiply-adds per (row, column ≤ row, dim) for Q·Kᵀ and P·V —
+    or q, k, v read and o written once over the HBM rate."""
+    b, hq, hkv, s, d = shape
+    ops = 2 * 2 * b * hq * (s * (s + 1) // 2) * d
+    nbytes = 2 * b * s * d * (2 * hq + 2 * hkv)
+    t_o, t_b = ops / TC_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return (t_o, "operations") if t_o >= t_b else (t_b, "bytes")
+
+
+def check_flash(dev) -> float:
+    """Phase 2: ``flash_attention`` against its plain version and the
+    S×S oracle. Returns the largest absolute difference from the plain
+    version."""
+    from repro_torch.kernels.flash_attention import ops as fa, ref as fa_ref
+
+    worst = 0.0
+    cases = [(sh, dt) for sh in FLASH_SHAPES
+             for dt in (torch.float32, torch.bfloat16)]
+    cases += [(SMOLLM_ATTN, torch.bfloat16), (QWEN3_ATTN, torch.bfloat16),
+              (SMOLLM_ATTN[:3] + (512, 64), torch.float32)]
+    for i, (shape, dt) in enumerate(cases):
+        q, k, v = flash_inputs(shape, dt, i, dev)
+        plain = fa_ref.flash_attention(q, k, v)
+        card = fa.flash_attention(q, k, v)
+        torch.cuda.synchronize()
+        if dt == torch.float32:
+            ok = torch.allclose(card, plain, rtol=FLASH_F32_TOL,
+                                atol=FLASH_F32_TOL)
+        else:
+            ok = flash_agrees(card, plain)
+        if not ok:
+            fail(f"flash_attention differs from its plain version at "
+                 f"{shape} {dt}: max abs {max_abs(card, plain)}")
+        oracle = fa_ref.attention(q, k, v)
+        tol = ORACLE_TOL[dt]
+        if not torch.allclose(card.float(), oracle.float(), rtol=tol,
+                              atol=tol):
+            fail(f"flash_attention differs from the S×S oracle at {shape} "
+                 f"{dt} beyond {tol}: max abs {max_abs(card, oracle)}")
+        worst = max(worst, max_abs(card, plain))
+        print(f"flash_attention vs plain at {shape} {dt}: max abs "
+              f"{max_abs(card, plain):.3e}; vs oracle "
+              f"{max_abs(card, oracle):.3e}")
+        del q, k, v, plain, card, oracle
+    return worst
+
+
+def run_prefill(dev, LAUNCHES, reset_launches) -> dict:
+    """Phase 3, the model path: SmolLM-135M's prefill at full width (30
+    layers, bf16, random weights from seed 0), B ``PREFILL_BATCH`` × S
+    ``PREFILL_SEQ``, through ``make_prefill_step`` with the flash kernel,
+    against the xla path on the card; then an f32 copy at B 1, S 512 on
+    the card (pallas and xla) and on the CPU."""
+    import copy
+    import dataclasses
+
+    from repro_torch.configs import registry
+    from repro_torch.models import model as M
+    from repro_torch.optim import train_step as T
+
+    cfg = dataclasses.replace(registry.get_config("smollm-135m"),
+                              attention_impl="pallas")
+    xcfg = dataclasses.replace(cfg, attention_impl="xla")
+    params = M.init_params(cfg, seed=0, device=dev)
+    g = torch.Generator().manual_seed(11)
+    toks = torch.randint(0, cfg.vocab_size, (PREFILL_BATCH, PREFILL_SEQ),
+                         generator=g).to(dev)
+    pallas, xla = T.make_prefill_step(cfg), T.make_prefill_step(xcfg)
+    pallas(params, {"tokens": toks[:, :128]})       # warm-up
+    torch.cuda.synchronize()
+    reset_launches()
+    logits = pallas(params, {"tokens": toks})
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    if launches["flash_attention"] != cfg.num_layers:
+        fail(f"flash_attention launched {launches['flash_attention']} "
+             f"times in one SmolLM-135M prefill, expected {cfg.num_layers}")
+    want_shape = (PREFILL_BATCH, PREFILL_SEQ, cfg.vocab_size)
+    if tuple(logits.shape) != want_shape or logits.dtype != torch.bfloat16:
+        fail(f"prefill logits {tuple(logits.shape)} {logits.dtype}, "
+             f"expected {want_shape} bf16")
+    if not bool(torch.isfinite(logits).all()):
+        fail("prefill logits are not finite")
+    xlogits = xla(params, {"tokens": toks})
+    diff = max_abs(logits, xlogits)
+    scale = float(xlogits.float().abs().max())
+    agree = float((logits.argmax(-1) == xlogits.argmax(-1)).float().mean())
+    print(f"SmolLM-135M prefill B {PREFILL_BATCH} S {PREFILL_SEQ} bf16: "
+          f"{launches['flash_attention']} flash_attention launches; pallas "
+          f"vs xla path max abs {diff:.4f} (max |logit| {scale:.3f}), "
+          f"argmax agreement {agree:.4f}")
+    if agree < PREFILL_BF16_AGREE or diff > PREFILL_BF16_REL * scale:
+        fail(f"bf16 prefill: pallas and xla paths disagree (argmax "
+             f"agreement {agree:.4f} < {PREFILL_BF16_AGREE} or max abs "
+             f"{diff:.4f} > {PREFILL_BF16_REL} x {scale:.3f})")
+    del xlogits
+
+    def forward_ms(step, reps=5):
+        step(params, {"tokens": toks})
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            step(params, {"tokens": toks})
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / reps * 1e3
+
+    ms_p, ms_x = forward_ms(pallas), forward_ms(xla)
+    profile_call("SmolLM-135M prefill forward (pallas)",
+                 lambda: pallas(params, {"tokens": toks}), cfg.num_layers,
+                 "layer")
+    n_tok = PREFILL_BATCH * PREFILL_SEQ
+    print(f"SmolLM-135M prefill: pallas path {ms_p:.2f} ms per forward "
+          f"({n_tok / ms_p * 1e3:.4g} tokens/s), xla path {ms_x:.2f} ms "
+          f"({n_tok / ms_x * 1e3:.4g} tokens/s)")
+    del params, logits
+    torch.cuda.empty_cache()
+
+    # f32: pallas and xla on the card, the plain version on the CPU.
+    cfg32 = dataclasses.replace(cfg, param_dtype=torch.float32)
+    cpu_params = M.init_params(cfg32, seed=0, device="cpu")
+    card_params = copy.deepcopy(cpu_params).to(dev)
+    t32 = torch.randint(0, cfg.vocab_size, (1, 512), generator=g)
+    cpu = T.make_prefill_step(cfg32)(cpu_params, {"tokens": t32})
+    card = T.make_prefill_step(cfg32)(card_params, {"tokens": t32.to(dev)})
+    cardx = T.make_prefill_step(
+        dataclasses.replace(cfg32, attention_impl="xla"))(
+        card_params, {"tokens": t32.to(dev)})
+    tol = PREFILL_F32_REL * float(cpu.abs().max())
+    errs = {"card pallas vs cpu": max_abs(card, cpu),
+            "card xla vs cpu": max_abs(cardx, cpu),
+            "card pallas vs card xla": max_abs(card, cardx)}
+    print(f"SmolLM-135M prefill f32 B 1 S 512: max abs {errs} (tolerance "
+          f"{tol:.3e} = {PREFILL_F32_REL} x max |logit|)")
+    if max(errs.values()) > tol:
+        fail(f"f32 prefill: card and CPU disagree beyond {tol:.3e}: {errs}")
+    return {"launches": launches, "ms_pallas": ms_p, "ms_xla": ms_x,
+            "diff": diff, "agree": agree}
+
+
+def run_serve(dev, LAUNCHES, reset_launches) -> dict:
+    """Phase 3, the serve CLI at the reference's defaults on the card
+    (SmolLM-135M, 64 requests in batches of 8, prompt 64, decode 16), then
+    one batch (8 × prompt 16, decode 4) in f32 against the CPU: the same
+    greedy tokens."""
+    import copy
+    import dataclasses
+
+    from repro_torch.configs import registry
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+
+    reset_launches()
+    t0 = time.perf_counter()
+    mean, exact = serve.main(["--arch", "smollm-135m"])
+    secs = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    print(f"serve CLI on the card: {secs:.2f} s; launches {launches}")
+    if not np.isfinite(mean) or launches["quantile_compact"] < 1:
+        fail(f"serve CLI: mean latency {mean}, quantile_compact launched "
+             f"{launches['quantile_compact']} times")
+    cfg = dataclasses.replace(registry.get_config("smollm-135m"),
+                              param_dtype=torch.float32)
+    cpu_params = M.init_params(cfg, seed=0, device="cpu")
+    card_params = copy.deepcopy(cpu_params).to(dev)
+    g = torch.Generator().manual_seed(12)
+    toks = torch.randint(0, cfg.vocab_size, (8, 16), generator=g)
+    want = serve.serve_batch(cfg, cpu_params, toks, 4)
+    got = serve.serve_batch(cfg, card_params, toks.to(dev), 4)
+    if not torch.equal(got.cpu(), want):
+        fail(f"serve_batch f32: card tokens {got.tolist()} differ from the "
+             f"CPU's {want.tolist()}")
+    print(f"serve_batch f32 (8 x prompt 16, decode 4): the card's greedy "
+          f"tokens are the CPU's ({want.shape[1]} per request)")
+    # Where a decode step's time goes, bf16 as the CLI serves: 15 prompt
+    # steps and 5 decoded.
+    bcfg = registry.get_config("smollm-135m")
+    bparams = M.init_params(bcfg, seed=0, device=dev)
+    serve.serve_batch(bcfg, bparams, toks.to(dev), 4)
+    profile_call("serve_batch bf16 (8 x prompt 16, decode 4)",
+                 lambda: serve.serve_batch(bcfg, bparams, toks.to(dev), 4),
+                 20, "decode step")
+    return {"secs": secs, "launches": launches, "mean": mean,
+            "exact": exact}
 
 
 # ------------------------------------------------------------ main path --
@@ -748,17 +1098,20 @@ def report_epochs(what, secs, items, cpu_secs):
 
 
 def profile_epoch(what, pipe, state, b):
-    """Where a steady epoch's time goes: device time by kernel name from
-    the profiler, and the device's busy share of the wall time (the
-    profiler's own cost inflates the wall time a little)."""
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        pipe.run_epoch(state, pipe.default_key, b.values, b.strata, b.counts)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    dev_events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    """Where a steady epoch's time goes (see ``profile_call``)."""
+    profile_call(f"{what} ({TICKS} ticks)", lambda: pipe.run_epoch(
+        state, pipe.default_key, b.values, b.strata, b.counts), TICKS, "tick")
+
+
+def profile_call(what, fn, units, unit):
+    """Where one call's time goes: device time by kernel name from the
+    profiler (see ``traced``), and the device's busy share of the wall
+    time (the profiler's own cost inflates the wall time a little)."""
+    torch.cuda.synchronize()
+    windows, (wall,) = traced(fn, 1)
+    # the run's window, the last that is not empty
+    dev_events = next((w for w in reversed(windows) if w), [])
+    wall_us = wall * 1e6
     if not dev_events:
         print(f"profiled {what}: the profiler saw no device events; device "
               f"busy share not measured")
@@ -769,10 +1122,10 @@ def profile_epoch(what, pipe, state, b):
         rec[0] += 1
         rec[1] += e.time_range.elapsed_us()
     busy = sum(r[1] for r in by_name.values())
-    print(f"profiled {what} ({TICKS} ticks): wall {wall_us / 1e3:.1f} ms, "
+    print(f"profiled {what}: wall {wall_us / 1e3:.1f} ms, "
           f"device busy {busy / 1e3:.2f} ms ({100 * busy / wall_us:.1f}%), "
-          f"{len(dev_events)} device events ({len(dev_events) / TICKS:.0f} "
-          f"per tick)")
+          f"{len(dev_events)} device events ({len(dev_events) / units:.0f} "
+          f"per {unit})")
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
     for name, (count, us) in top:
         print(f"  {us / 1e3:8.3f} ms  {count:5d}x  {name[:90]}")
@@ -793,8 +1146,11 @@ def main() -> None:
     from repro_torch.kernels.segment_sum import ops as segsum
     from repro_torch.kernels.segment_sum import ref as segsum_ref
 
+    # f32 products in full f32, bf16 products summed in f32 (as XLA does
+    # with preferred f32 accumulation), no TF32 anywhere.
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -823,6 +1179,7 @@ def main() -> None:
     err = check_kernels(dev)
     err.update(check_sketch_kernels(dev, path_shapes))
     err.update(check_slice3_kernels(dev))
+    err["flash_attention"] = check_flash(dev)
     print(f"max abs differences vs plain: {err}")
     check_neyman_masks(dev, S)
 
@@ -937,6 +1294,11 @@ def main() -> None:
 
     driver = check_driver(A, dev, LAUNCHES, reset_launches)
 
+    # The model zoo's serving half: SmolLM-135M's prefill through the
+    # flash kernel, then the serve CLI.
+    prefill = run_prefill(dev, LAUNCHES, reset_launches)
+    served = run_serve(dev, LAUNCHES, reset_launches)
+
     # 4. Times, at the main path's shapes: device time from the profiler
     # (what ``ms``, ``plain_ms`` and ``library_ms`` report), and beside it
     # the wrapper loop's time on CUDA events, which includes the host.
@@ -990,18 +1352,20 @@ def main() -> None:
         return sum(cap * (select_passes(out[4][i], out[5][i], 4) + 1)
                    for i in range(n))
 
-    ms_l0 = device_ms(lambda: tick(ft, l0))
-    ms_l1 = device_ms(lambda: tick(ft, l1))
+    ms_l0 = device_ms(lambda: tick(ft, l0), name="fused_level_tick")
+    ms_l1 = device_ms(lambda: tick(ft, l1), name="fused_level_tick")
     t = {"fused_level_tick": (
              (ms_l0 + ms_l1) / 2,
              (device_ms(lambda: tick(ft_ref, l0), 5)
               + device_ms(lambda: tick(ft_ref, l1), 5)) / 2,
              None),
-         "fused_select": (device_ms(lambda: ft.fused_select(*sel_args)),
+         "fused_select": (device_ms(lambda: ft.fused_select(*sel_args),
+                                    name="fused_select"),
                           device_ms(lambda: ft_ref.fused_select(*sel_args),
                                     5),
                           None),
-         "stratified_stats": (device_ms(lambda: ss.stratified_stats(*ss_args)),
+         "stratified_stats": (device_ms(lambda: ss.stratified_stats(*ss_args),
+                                        name="stratified_stats"),
                               device_ms(lambda: ss_ref.stratified_stats(
                                   *ss_args), 5),
                               device_ms(library_ss))}
@@ -1039,10 +1403,12 @@ def main() -> None:
                         v[idx.clamp_max(v.shape[0] - 1)], 0.0)
 
     n_cms, n_qc = len(cms_cases), len(qc_cases)
-    t["cms_update"] = (device_ms(lambda: cms_all(sk)) / n_cms,
+    t["cms_update"] = (device_ms(lambda: cms_all(sk), name="cms_update")
+                       / n_cms,
                        device_ms(lambda: cms_all(sk_ref), 5) / n_cms,
                        device_ms(cms_library) / n_cms)
-    t["quantile_compact"] = (device_ms(lambda: qc_all(sk)) / n_qc,
+    t["quantile_compact"] = (device_ms(lambda: qc_all(sk),
+                                       name="quantile_compact") / n_qc,
                              device_ms(lambda: qc_all(sk_ref), 5) / n_qc,
                              device_ms(qc_library) / n_qc)
     wall = {"fused_level_tick": (loop_ms(lambda: tick(ft, l0))
@@ -1082,7 +1448,8 @@ def main() -> None:
         for args in sm_cases:
             mod.sample_mask(*args)
 
-    sm_each = [device_ms(lambda a=a: sm.sample_mask(*a)) for a in sm_cases]
+    sm_each = [device_ms(lambda a=a: sm.sample_mask(*a), name="sample_mask")
+               for a in sm_cases]
     t["sample_mask"] = (sum(sm_each) / len(sm_cases),
                         device_ms(lambda: sm_all(sm_ref), 5) / len(sm_cases),
                         None)
@@ -1099,8 +1466,8 @@ def main() -> None:
     # item. Plain = library = index_add_ (float atomics, unordered).
     seg_cases = [[a.to(dev) for a in ordered_inputs(rng, r, mm, 4)]
                  for r, mm in ((1, 2200), (4, 11008))]
-    seg_ms = [device_ms(lambda a=a: segsum.segment_sum(*a, 4))
-              for a in seg_cases]
+    seg_ms = [device_ms(lambda a=a: segsum.segment_sum(*a, 4),
+                        name="segment_sum") for a in seg_cases]
     seg_plain = [device_ms(lambda a=a: segsum_ref.segment_sum(*a, 4), 5)
                  for a in seg_cases]
     seg_b = [bound(r * mm * 8 + r * 16, r * mm)
@@ -1118,12 +1485,51 @@ def main() -> None:
           f"{ms_l0:.4f} ms (bound {b_l0[0] * 1e3:.3f} us, {b_l0[1]}), "
           f"L1 [{n1}, {cap1}] {ms_l1:.4f} ms (bound {b_l1[0] * 1e3:.3f} us, "
           f"{b_l1[1]})")
+    t["segment_sum"] = (seg_ms[0], seg_plain[0], seg_plain[0])
+    bounds["segment_sum"] = seg_b[0]
+    # flash_attention at SmolLM-135M's prefill (the main path's launch) and
+    # Qwen3-4B's heads at S 4096, bf16; library: SDPA (causal, GQA), timed
+    # here only.
+    from torch.nn import functional as F
+
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+
+    flash = {}
+    for shape in (SMOLLM_ATTN, QWEN3_ATTN):
+        q, k, v = flash_inputs(shape, torch.bfloat16, 99, dev)
+        flash[shape] = (
+            device_ms(lambda: fa.flash_attention(q, k, v), 10,
+                      name="flash_attention"),
+            device_ms(lambda: fa_ref.flash_attention(q, k, v), 3),
+            device_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True), 10),
+            flash_bound(shape))
+        ms_f, plain_f, lib_f, b_f = flash[shape]
+        print(f"flash_attention {shape} bf16: device {ms_f:.4f} ms/launch, "
+              f"bound {b_f[0]:.4f} ms ({b_f[1]}), {b_f[0] / ms_f:.2%} of "
+              f"the bound; plain {plain_f:.4f} ms; SDPA {lib_f:.4f} ms "
+              f"({ms_f / lib_f:.1f}x the kernel's time)")
+        del q, k, v
+    t["flash_attention"] = flash[SMOLLM_ATTN][:3]
+    bounds["flash_attention"] = flash[SMOLLM_ATTN][3]
     tiny = torch.zeros(1, device=dev)
     print(f"launch floor (1-element add_): device "
           f"{device_ms(lambda: tiny.add_(1.0), 200):.4f} ms, back-to-back "
           f"loop {loop_ms(lambda: tiny.add_(1.0), 200):.4f} ms")
+    # Each kernel's own time is the median of up to TRACES traces; per
+    # timing: min, median and max ms, traces kept and rejected, or the
+    # CUDA-event time where every trace was rejected (cms_update and
+    # quantile_compact per window, not per launch).
+    for name, runs in SPREAD.items():
+        print(f"{name} device ms over traces (min, median, max): " + "; ".join(
+            f"{min(r):.5f}, {statistics.median(r):.5f}, {max(r):.5f} "
+            f"({len(r)} kept, {rej} rejected)" if r else
+            f"CUDA events {ms:.5f} ({rej} rejected)" for r, rej, ms in runs))
     per_tick = dict(per_window, sample_mask=3)
     for name, (ms, plain_ms, lib_ms) in t.items():
+        if name in ("segment_sum", "flash_attention"):
+            continue
         print(f"{name}: device {ms:.4f} ms/launch (wrapper loop "
               f"{wall[name]:.4f} ms), {per_tick[name]} launch(es) per tick, "
               f"bound {bounds[name][0]:.6f} ms ({bounds[name][1]}), plain "
@@ -1147,10 +1553,12 @@ def main() -> None:
               f" ms, {rep_['dispatches']} dispatches)")
 
     # 5. Result lines.
-    # launches: the tenant path's for the five kernels on it, the pallas
-    # driver run's for sample_mask.
-    path_launches = dict(q_launches,
-                         sample_mask=driver["level pallas"][1]["sample_mask"])
+    # launches: the tenant path's for the five kernels on it and
+    # segment_sum, the pallas driver run's for sample_mask, one SmolLM-135M
+    # prefill's for flash_attention.
+    path_launches = dict(
+        q_launches, sample_mask=driver["level pallas"][1]["sample_mask"],
+        flash_attention=prefill["launches"]["flash_attention"])
     kernels = [{"name": name, "route": "cuda", "source": SOURCES[name],
                 "replaces": REPLACES[name], "launches": path_launches[name],
                 "max_abs_err": err[name], "ms": t[name][0],

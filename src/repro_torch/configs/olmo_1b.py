@@ -1,0 +1,8 @@
+"""OLMo-1B [arXiv:2402.00838; hf] — dense, non-parametric LayerNorm."""
+from repro_torch.configs.base import ArchConfig
+
+CONFIG = ArchConfig(
+    name="olmo-1b", family="dense",
+    num_layers=16, d_model=2048, num_heads=16, num_kv_heads=16,
+    d_ff=8192, vocab_size=50304, norm_type="nonparametric_ln",
+)

@@ -1,0 +1,8 @@
+"""Qwen3-4B [hf:Qwen/Qwen3-8B family] — dense, qk_norm, GQA kv=8."""
+from repro_torch.configs.base import ArchConfig
+
+CONFIG = ArchConfig(
+    name="qwen3-4b", family="dense",
+    num_layers=36, d_model=2560, num_heads=32, num_kv_heads=8,
+    d_ff=9728, vocab_size=151936, qk_norm=True, head_dim=128,
+)

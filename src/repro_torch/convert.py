@@ -11,6 +11,14 @@ numpy arrays under the same names. ``qstate`` keeps the reference's
 layout: one ``(mask, sketches)`` pair per slot group, each sketch a
 quantile, windowed-quantile or heavy-hitter state (told apart by its
 field names) or ``()`` for a stateless query.
+
+The model zoo's weights cross the same way: ``params_from_numpy`` takes
+the reference's parameter tree (nested dicts of numpy arrays, the layers
+stacked on axis 0) and builds the port's ``Params`` module with one entry
+per layer; ``params_to_numpy`` stacks them back. ``cache_from_numpy`` and
+``cache_to_numpy`` carry ``init_cache``'s dict. bf16 arrays (numpy's
+``bfloat16`` from the reference) come in bit for bit and go out as f32,
+which holds every bf16 value exactly.
 """
 from __future__ import annotations
 
@@ -21,6 +29,8 @@ import torch
 
 from repro_torch.api.pipeline import PipelineState
 from repro_torch.core.window import TreeState
+from repro_torch.device import resolve_device
+from repro_torch.models.layers import Params
 from repro_torch.obs.telemetry import EpochTelemetry
 from repro_torch.query.sketches import (HeavyHitterSketch, QuantileSketch,
                                         WindowedQuantileSketch)
@@ -113,3 +123,71 @@ def state_to_numpy(state: PipelineState) -> dict:
         if isinstance(tree.telemetry, EpochTelemetry) else ())
     out["route"] = () if isinstance(tree.route, tuple) else host(tree.route)
     return {"tree": out, "tick": host(state.tick)}
+
+
+# ------------------------------------------------------------- the models --
+def _weight(a, dtype, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":     # the reference's bf16: same bits
+        t = torch.from_numpy(np.ascontiguousarray(a).view(np.uint16).copy())
+        t = t.view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(a))
+    return t.to(device=device, dtype=dtype)
+
+
+def _host_weight(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        t = t.to(torch.float32)
+    return t.numpy()
+
+
+def params_from_numpy(cfg, tree: Mapping, device="cuda") -> Params:
+    """The reference's parameter tree → the port's ``Params`` on
+    ``device``, every weight in ``cfg.param_dtype``; ``tree["layers"]``
+    (stacked on axis 0) becomes a list of per-layer modules."""
+    dev = resolve_device(device)
+    dt = cfg.param_dtype
+
+    def conv(node, index=None):
+        if isinstance(node, Mapping):
+            return {k: conv(v, index) for k, v in node.items()}
+        return _weight(node if index is None else np.asarray(node)[index],
+                       dt, dev)
+
+    out = {k: conv(v) for k, v in tree.items() if k != "layers"}
+    out["layers"] = [conv(tree["layers"], i) for i in range(cfg.num_layers)]
+    return Params(out)
+
+
+def params_to_numpy(params: Params) -> dict:
+    """The port's ``Params`` → the reference's tree of numpy arrays, the
+    layers stacked on axis 0."""
+    def conv(mod):
+        out = {name: _host_weight(t) for name, t in mod._parameters.items()}
+        for name, sub in mod._modules.items():
+            if isinstance(sub, torch.nn.ModuleList):
+                per = [conv(m) for m in sub]
+                out[name] = _stack(per)
+            else:
+                out[name] = conv(sub)
+        return out
+
+    def _stack(per):
+        if isinstance(per[0], Mapping):
+            return {k: _stack([p[k] for p in per]) for k in per[0]}
+        return np.stack(per)
+
+    return conv(params)
+
+
+def cache_from_numpy(cfg, cache: Mapping, device="cuda") -> dict:
+    """``init_cache``'s dict of numpy arrays → tensors in
+    ``cfg.param_dtype`` on ``device``."""
+    dev = resolve_device(device)
+    return {k: _weight(v, cfg.param_dtype, dev) for k, v in cache.items()}
+
+
+def cache_to_numpy(cache: Mapping) -> dict:
+    return {k: _host_weight(v) for k, v in cache.items()}

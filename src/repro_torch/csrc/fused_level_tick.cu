@@ -22,6 +22,15 @@
 // multiply-add is contracted. Spreading a node over several blocks, and
 // keeping the buffer in shared memory, are left for a later change.
 //
+// Any number of strata per node up to 4,096: the block's per-stratum state
+// (12 words a stratum) lives in dynamic shared memory sized by X, at most
+// 192 KB; the allocation thread's per-stratum arrays (kScratchArrays words
+// a stratum) live in a per-node global scratch that the wrapper allocates.
+// Per-stratum steps loop over the strata. Counts take one ballot per
+// stratum per 32 items at X <= 32, and one integer shared-memory atomic per
+// matching item above (exact in any order). The arithmetic and its order
+// are the same at every X, so results at X <= 32 keep their bits.
+//
 // Tie law: items with u > tau are kept; items with u == tau (exact f32
 // ties) are kept in buffer order while their rank within the stratum is at
 // most N - (strict keeps). This is the stable lexsort's law, so masks equal
@@ -32,7 +41,8 @@
 
 namespace {
 
-constexpr int kMaxStrata = 32;
+constexpr int kMaxStrata = 4096;
+constexpr int kBallotStrata = 32;  // counts by warp ballots up to this X
 constexpr int kThreads = 1024;
 constexpr int kWarps = kThreads / 32;
 constexpr int kSearchIters = 31;
@@ -40,14 +50,38 @@ constexpr unsigned kFull = 0xffffffffu;
 
 enum Policy { kFair = 0, kProportional = 1, kNeyman = 2 };
 
-struct Shared {
-  int cnt[kMaxStrata];     // scratch per-stratum counter
-  int lo[kMaxStrata], hi[kMaxStrata], mid[kMaxStrata], n_eff[kMaxStrata];
-  int n_int[kMaxStrata], c_int[kMaxStrata];
-  float c[kMaxStrata], res[kMaxStrata], tau[kMaxStrata], slack[kMaxStrata];
-  float stds[kMaxStrata];
+// Per-stratum block state: kStratumWords arrays of X words each, carved
+// from dynamic shared memory.
+constexpr int kStratumWords = 12;
+
+struct Fixed {
   int wtot[kWarps];
   int n_valid, last_valid, saturated;
+};
+
+struct Shared {
+  int *cnt;                // scratch per-stratum counter
+  int *lo, *hi, *mid, *n_eff, *n_int, *c_int;
+  float *c, *res, *tau, *slack, *stds;
+  int *wtot;
+  int &n_valid, &last_valid, &saturated;
+};
+
+__device__ __forceinline__ Shared carve(Fixed& f, int X) {
+  extern __shared__ int dyn[];
+  float* fl = reinterpret_cast<float*>(dyn);
+  return Shared{dyn,          dyn + X,      dyn + 2 * X,  dyn + 3 * X,
+                dyn + 4 * X,  dyn + 5 * X,  dyn + 6 * X,  fl + 7 * X,
+                fl + 8 * X,   fl + 9 * X,   fl + 10 * X,  fl + 11 * X,
+                f.wtot,       f.n_valid,    f.last_valid, f.saturated};
+}
+
+// The allocation thread's per-stratum arrays, in the node's slice of the
+// global scratch (kScratchArrays * X floats).
+constexpr int kScratchArrays = 14;
+enum ScratchArray {
+  kAlloc = 0, kActive, kReserve, kRemCounts, kOne, kPre, kQuota, kBase,
+  kFrac, kScore, kS, kUsed, kCapped, kHead
 };
 
 __device__ __forceinline__ int clamp_stratum(int s, int X) {
@@ -55,12 +89,20 @@ __device__ __forceinline__ int clamp_stratum(int s, int X) {
 }
 
 // Adds to cnt[s], for every stratum s < X, the number of items k < m with
-// pred(k) and strata[k] == s: one ballot per stratum per 32 items, one
-// shared-memory atomic per warp per stratum.
+// pred(k) and strata[k] == s. Up to 32 strata: one ballot per stratum per
+// 32 items, one shared-memory atomic per warp per stratum. Above: one
+// shared-memory atomic per matching item.
 template <class Pred>
 __device__ void count_by_stratum(const int* strata, int m, int X, Pred pred,
                                  int* cnt) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (X > kBallotStrata) {
+    for (int k = threadIdx.x; k < m; k += kThreads) {
+      const int s = strata[k];
+      if (s >= 0 && s < X && pred(k)) atomicAdd(&cnt[s], 1);
+    }
+    return;
+  }
   int acc = 0;
   for (int base = warp * 32; base < m; base += kThreads) {
     const int k = base + lane;
@@ -82,7 +124,7 @@ __device__ void count_by_stratum(const int* strata, int m, int X, Pred pred,
 __device__ void count_phase(const int* strata, const uint8_t* valid, int m,
                             int X, Shared& sm) {
   const int tid = threadIdx.x;
-  if (tid < kMaxStrata) sm.cnt[tid] = 0;
+  for (int s = tid; s < X; s += kThreads) sm.cnt[s] = 0;
   if (tid == 0) {
     sm.n_valid = 0;
     sm.last_valid = -1;
@@ -105,7 +147,7 @@ __device__ void count_phase(const int* strata, const uint8_t* valid, int m,
     atomicMax(&sm.last_valid, last);
   }
   __syncthreads();
-  if (tid < X) sm.c[tid] = (float)sm.cnt[tid];
+  for (int s = tid; s < X; s += kThreads) sm.c[s] = (float)sm.cnt[s];
   __syncthreads();
 }
 
@@ -124,36 +166,44 @@ __device__ float seq_sum(const float* x, int X) {
   return acc;
 }
 
-__device__ void settle(float* alloc, const float* counts, const bool* active,
-                       float budget, int X) {
-  float head[kMaxStrata], pre[kMaxStrata];
+__device__ void settle(float* alloc, const float* counts, const float* active,
+                       float budget, int X, float* scratch) {
+  float* head = scratch + kHead * X;
+  float* pre = scratch + kPre * X;
   float sum = 0.f;
   for (int i = 0; i < X; ++i) {
-    alloc[i] = active[i] ? fminf(alloc[i], counts[i]) : 0.f;
+    alloc[i] = active[i] != 0.f ? fminf(alloc[i], counts[i]) : 0.f;
     sum = sum + alloc[i];
   }
-  for (int i = 0; i < X; ++i) head[i] = active[i] ? counts[i] - alloc[i] : 0.f;
+  for (int i = 0; i < X; ++i)
+    head[i] = active[i] != 0.f ? counts[i] - alloc[i] : 0.f;
   const float leftover = budget - sum;
   exclusive_prefix(head, pre, X);
   for (int i = 0; i < X; ++i)
     alloc[i] = alloc[i] + fminf(fmaxf(leftover - pre[i], 0.f), head[i]);
 }
 
+// Writes the allocation to scratch[kAlloc * X ...].
 __device__ void allocate(float size, const float* counts, const float* stds,
-                         int policy, int X, float* alloc) {
-  bool active[kMaxStrata];
+                         int policy, int X, float* scratch) {
+  float* alloc = scratch + kAlloc * X;
+  float* active = scratch + kActive * X;  // 1.0 where counts > 0, else 0.0
   float total_c = 0.f, n_active = 0.f;
   for (int i = 0; i < X; ++i) {
-    active[i] = counts[i] > 0.f;
-    n_active = n_active + (active[i] ? 1.f : 0.f);
+    active[i] = counts[i] > 0.f ? 1.f : 0.f;
+    n_active = n_active + (active[i] != 0.f ? 1.f : 0.f);
     total_c = total_c + counts[i];
   }
   n_active = fmaxf(n_active, 1.f);
   const float budget = fminf(size, total_c);
 
-  float reserve[kMaxStrata], rem_counts[kMaxStrata], rem_budget = 0.f;
+  float* reserve = scratch + kReserve * X;
+  float* rem_counts = scratch + kRemCounts * X;
+  float rem_budget = 0.f;
   if (policy != kFair) {
-    float one[kMaxStrata], pre[kMaxStrata], sum_res = 0.f;
+    float* one = scratch + kOne * X;
+    float* pre = scratch + kPre * X;
+    float sum_res = 0.f;
     for (int i = 0; i < X; ++i) one[i] = fminf(counts[i], 1.f);
     exclusive_prefix(one, pre, X);
     for (int i = 0; i < X; ++i) {
@@ -165,7 +215,9 @@ __device__ void allocate(float size, const float* counts, const float* stds,
   }
 
   if (policy == kProportional) {
-    float quota[kMaxStrata], base[kMaxStrata], frac[kMaxStrata];
+    float* quota = scratch + kQuota * X;
+    float* base = scratch + kBase * X;
+    float* frac = scratch + kFrac * X;
     float total = 0.f, sum_base = 0.f;
     for (int i = 0; i < X; ++i) total = total + rem_counts[i];
     total = fmaxf(total, 1.f);
@@ -186,9 +238,10 @@ __device__ void allocate(float size, const float* counts, const float* stds,
       alloc[i] = reserve[i] + base[i] + extra;
     }
   } else if (policy == kNeyman) {
-    float score[kMaxStrata], s[kMaxStrata];
+    float* score = scratch + kScore * X;
+    float* s = scratch + kS * X;
     for (int i = 0; i < X; ++i)
-      score[i] = active[i] ? counts[i] * fmaxf(stds[i], 1e-6f) : 0.f;
+      score[i] = active[i] != 0.f ? counts[i] * fmaxf(stds[i], 1e-6f) : 0.f;
     const float s_tot0 = fmaxf(seq_sum(score, X), 1e-30f);
     for (int i = 0; i < X; ++i)
       alloc[i] = fminf(reserve[i] + floorf(rem_budget * score[i] / s_tot0),
@@ -196,7 +249,7 @@ __device__ void allocate(float size, const float* counts, const float* stds,
     for (int it = 0; it < 4; ++it) {
       float sum_alloc = 0.f;
       for (int i = 0; i < X; ++i) {
-        s[i] = (active[i] && alloc[i] < counts[i]) ? score[i] : 0.f;
+        s[i] = (active[i] != 0.f && alloc[i] < counts[i]) ? score[i] : 0.f;
         sum_alloc = sum_alloc + alloc[i];
       }
       const float s_tot = fmaxf(seq_sum(s, X), 1e-30f);
@@ -206,25 +259,25 @@ __device__ void allocate(float size, const float* counts, const float* stds,
     }
   } else {
     for (int i = 0; i < X; ++i)
-      alloc[i] = active[i] ? floorf(budget / n_active) : 0.f;
+      alloc[i] = active[i] != 0.f ? floorf(budget / n_active) : 0.f;
+    float* used = scratch + kUsed * X;
+    float* capped = scratch + kCapped * X;  // 1.0 or 0.0
     for (int it = 0; it < 4; ++it) {
-      float used[kMaxStrata];
-      bool capped[kMaxStrata];
       float surplus = 0.f, n_capped = 0.f;
       for (int i = 0; i < X; ++i) {
         used[i] = fminf(alloc[i], counts[i]);
         surplus = surplus + (alloc[i] - used[i]);
-        capped[i] = active[i] && counts[i] > alloc[i];
-        n_capped = n_capped + (capped[i] ? 1.f : 0.f);
+        capped[i] = (active[i] != 0.f && counts[i] > alloc[i]) ? 1.f : 0.f;
+        n_capped = n_capped + capped[i];
       }
       n_capped = fmaxf(n_capped, 1.f);
       for (int i = 0; i < X; ++i) {
-        const float bump = capped[i] ? floorf(surplus / n_capped) : 0.f;
-        alloc[i] = active[i] ? used[i] + bump : 0.f;
+        const float bump = capped[i] != 0.f ? floorf(surplus / n_capped) : 0.f;
+        alloc[i] = active[i] != 0.f ? used[i] + bump : 0.f;
       }
     }
   }
-  settle(alloc, counts, active, budget, X);
+  settle(alloc, counts, active, budget, X, scratch);
 }
 
 // Per-stratum value standard deviations over valid items (neyman only):
@@ -232,8 +285,7 @@ __device__ void allocate(float size, const float* counts, const float* stds,
 // the plain version's scatter-add, so the result is bitwise the same.
 __device__ void stds_phase(const float* values, const int* strata,
                            const uint8_t* valid, int m, int X, Shared& sm) {
-  const int s = threadIdx.x;
-  if (s < X) {
+  for (int s = threadIdx.x; s < X; s += kThreads) {
     float s1 = 0.f, s2 = 0.f;
     for (int k = 0; k < m; ++k) {
       if (valid[k] && strata[k] == s) {
@@ -264,19 +316,19 @@ __device__ void select_phase(const float* prio, const int* strata,
     __syncthreads();
     return;
   }
-  if (tid < X) {
-    const int n = (int)sm.res[tid], c = (int)sm.c[tid];
-    sm.n_int[tid] = n;
-    sm.c_int[tid] = c;
-    sm.n_eff[tid] = max(min(n, c), 1);
-    sm.lo[tid] = 0;               // F(0) = c >= n_eff
-    sm.hi[tid] = 0x3F800001;      // above the bits of every u < 1
+  for (int s = tid; s < X; s += kThreads) {
+    const int n = (int)sm.res[s], c = (int)sm.c[s];
+    sm.n_int[s] = n;
+    sm.c_int[s] = c;
+    sm.n_eff[s] = max(min(n, c), 1);
+    sm.lo[s] = 0;               // F(0) = c >= n_eff
+    sm.hi[s] = 0x3F800001;      // above the bits of every u < 1
   }
   const int* u_bits = reinterpret_cast<const int*>(prio);
   for (int it = 0; it < kSearchIters; ++it) {
-    if (tid < X) {
-      sm.mid[tid] = (sm.lo[tid] + sm.hi[tid]) / 2;
-      sm.cnt[tid] = 0;
+    for (int s = tid; s < X; s += kThreads) {
+      sm.mid[s] = (sm.lo[s] + sm.hi[s]) / 2;
+      sm.cnt[s] = 0;
     }
     __syncthreads();
     count_by_stratum(
@@ -286,16 +338,16 @@ __device__ void select_phase(const float* prio, const int* strata,
         },
         sm.cnt);
     __syncthreads();
-    if (tid < X) {
-      if (sm.cnt[tid] >= sm.n_eff[tid]) sm.lo[tid] = sm.mid[tid];
-      else sm.hi[tid] = sm.mid[tid];
+    for (int s = tid; s < X; s += kThreads) {
+      if (sm.cnt[s] >= sm.n_eff[s]) sm.lo[s] = sm.mid[s];
+      else sm.hi[s] = sm.mid[s];
     }
   }
-  if (tid < X) {
-    const int n = sm.n_int[tid];
-    sm.tau[tid] = n <= 0 ? 2.0f
-                         : (sm.c_int[tid] <= n ? -1.0f : __int_as_float(sm.lo[tid]));
-    sm.cnt[tid] = 0;
+  for (int s = tid; s < X; s += kThreads) {
+    const int n = sm.n_int[s];
+    sm.tau[s] = n <= 0 ? 2.0f
+                       : (sm.c_int[s] <= n ? -1.0f : __int_as_float(sm.lo[s]));
+    sm.cnt[s] = 0;
   }
   __syncthreads();
   auto strict = [&](int k) {
@@ -304,7 +356,8 @@ __device__ void select_phase(const float* prio, const int* strata,
   count_by_stratum(strata, m, X, strict, sm.cnt);
   for (int k = tid; k < m; k += kThreads) keep[k] = strict(k) ? 1 : 0;
   __syncthreads();
-  if (tid < X) sm.slack[tid] = sm.res[tid] - (float)sm.cnt[tid];
+  for (int s = tid; s < X; s += kThreads)
+    sm.slack[s] = sm.res[s] - (float)sm.cnt[s];
   __syncthreads();
   // Ties at tau, ranked by buffer position: one warp per stratum walks the
   // buffer in order.
@@ -332,10 +385,12 @@ fused_level_tick_kernel(const float* __restrict__ values_all,
                         const float* __restrict__ c_in,
                         const float* __restrict__ sample_size, int cap, int X,
                         int out_cap, int policy, int async_calibration,
-                        uint8_t* keep_all, float* values_c, int* strata_c,
-                        int* n_keep, float* c_out_counts, float* res_out,
-                        float* y_out, float* w_out, float* c_out) {
-  __shared__ Shared sm;
+                        float* scratch_all, uint8_t* keep_all, float* values_c,
+                        int* strata_c, int* n_keep, float* c_out_counts,
+                        float* res_out, float* y_out, float* w_out,
+                        float* c_out) {
+  __shared__ Fixed fixed;
+  Shared sm = carve(fixed, X);
   const int node = blockIdx.x, tid = threadIdx.x, lane = tid & 31,
             warp = tid >> 5;
   const size_t off = (size_t)node * cap;
@@ -353,8 +408,9 @@ fused_level_tick_kernel(const float* __restrict__ values_all,
 
   // Allocation, then the Alg. 2 lines 12-20 + Eq. 9 weight update.
   if (tid == 0) {
-    float alloc[kMaxStrata];
-    allocate(sample_size[0], sm.c, sm.stds, policy, X, alloc);
+    float* scratch = scratch_all + (size_t)node * kScratchArrays * X;
+    allocate(sample_size[0], sm.c, sm.stds, policy, X, scratch);
+    const float* alloc = scratch + kAlloc * X;
     int sat = 1;
     for (int i = 0; i < X; ++i) {
       sm.res[i] = alloc[i];
@@ -363,19 +419,19 @@ fused_level_tick_kernel(const float* __restrict__ values_all,
     sm.saturated = sat;
   }
   __syncthreads();
-  if (tid < X) {
-    const float c = sm.c[tid], r = sm.res[tid];
-    const float wi = w_in[xo + tid], ci = c_in[xo + tid];
+  for (int s = tid; s < X; s += kThreads) {
+    const float c = sm.c[s], r = sm.res[s];
+    const float wi = w_in[xo + s], ci = c_in[xo + s];
     const float y = fminf(c, fmaxf(r, 0.f));
     const float w_local = c > r ? c / fmaxf(r, 1.f) : 1.f;
     const float calib = (async_calibration && ci > 0.f && c > 0.f)
                             ? ci / fmaxf(c, 1.f) : 1.f;
     const float w = wi * w_local * calib;
-    c_out_counts[xo + tid] = c;
-    res_out[xo + tid] = r;
-    y_out[xo + tid] = y;
-    w_out[xo + tid] = c > 0.f ? w : wi;
-    c_out[xo + tid] = c > 0.f ? y : ci;
+    c_out_counts[xo + s] = c;
+    res_out[xo + s] = r;
+    y_out[xo + s] = y;
+    w_out[xo + s] = c > 0.f ? w : wi;
+    c_out[xo + s] = c > 0.f ? y : ci;
   }
 
   select_phase(prio, strata, valid, cap, X, sm, keep);
@@ -427,7 +483,8 @@ fused_select_kernel(const float* __restrict__ prio,
                     const uint8_t* __restrict__ valid,
                     const float* __restrict__ reservoirs, int m, int X,
                     uint8_t* keep) {
-  __shared__ Shared sm;
+  __shared__ Fixed fixed;
+  Shared sm = carve(fixed, X);
   const int tid = threadIdx.x;
   count_phase(strata, valid, m, X, sm);
   if (tid == 0) {
@@ -450,17 +507,27 @@ const char* repro_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
+// Words of global scratch per node that fused_level_tick_launch needs.
+int fused_level_tick_scratch_words(int X) { return kScratchArrays * X; }
+
 int fused_level_tick_launch(const float* values, const int* strata,
                             const uint8_t* valid, const float* prio,
                             const float* w_in, const float* c_in,
                             const float* sample_size, int n, int cap, int X,
                             int out_cap, int policy, int async_calibration,
-                            uint8_t* keep, float* values_c, int* strata_c,
-                            int* n_keep, float* c, float* reservoirs, float* y,
-                            float* w_out, float* c_out, cudaStream_t stream) {
-  fused_level_tick_kernel<<<n, kThreads, 0, stream>>>(
+                            float* scratch, uint8_t* keep, float* values_c,
+                            int* strata_c, int* n_keep, float* c,
+                            float* reservoirs, float* y, float* w_out,
+                            float* c_out, cudaStream_t stream) {
+  if (X < 1 || X > kMaxStrata) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = (size_t)kStratumWords * X * sizeof(int);
+  cudaError_t err = cudaFuncSetAttribute(
+      fused_level_tick_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  fused_level_tick_kernel<<<n, kThreads, smem, stream>>>(
       values, strata, valid, prio, w_in, c_in, sample_size, cap, X, out_cap,
-      policy, async_calibration, keep, values_c, strata_c, n_keep, c,
+      policy, async_calibration, scratch, keep, values_c, strata_c, n_keep, c,
       reservoirs, y, w_out, c_out);
   return static_cast<int>(cudaGetLastError());
 }
@@ -468,8 +535,14 @@ int fused_level_tick_launch(const float* values, const int* strata,
 int fused_select_launch(const float* prio, const int* strata,
                         const uint8_t* valid, const float* reservoirs, int m,
                         int X, uint8_t* keep, cudaStream_t stream) {
-  fused_select_kernel<<<1, kThreads, 0, stream>>>(prio, strata, valid,
-                                                  reservoirs, m, X, keep);
+  if (X < 1 || X > kMaxStrata) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = (size_t)kStratumWords * X * sizeof(int);
+  cudaError_t err = cudaFuncSetAttribute(
+      fused_select_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  fused_select_kernel<<<1, kThreads, smem, stream>>>(prio, strata, valid,
+                                                     reservoirs, m, X, keep);
   return static_cast<int>(cudaGetLastError());
 }
 

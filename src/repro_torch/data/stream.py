@@ -12,7 +12,8 @@ The port's own copy of ``repro.data.stream``'s streams:
 
 One source node draws from a numpy generator, in the reference's order,
 so one seed gives the same items to both packages; then the tick-major
-epoch ingest layout.
+epoch ingest layout, from sources (``batch_ingest``) or from records a
+host collected (``ticks_to_ingest``, the serve CLI's request latencies).
 """
 from __future__ import annotations
 
@@ -146,5 +147,37 @@ def batch_ingest(sources: list[StreamSource], ticks: int, n_nodes: int,
             fill[node] = _pack_prefix(values[t, node], strata[t, node],
                                       v, s, fill[node], width)
         counts[t] = fill
+    return IngestBatch(values, strata, counts, offered, exact_sum,
+                       exact_count)
+
+
+def ticks_to_ingest(tick_records, n_nodes: int, width: int) -> IngestBatch:
+    """Pack host-collected per-tick records into the tick-major
+    ``[T, n_nodes, width]`` epoch-ingest layout.
+
+    ``tick_records`` is a list of ``(values, strata)`` pairs, one per
+    tick (e.g. one serving batch's telemetry records per tick). Within a
+    tick, item ``i`` lands on level-0 node ``i % n_nodes`` (round-robin
+    in arrival order — the testbed's source wiring); per (tick, node)
+    the items are prefix-truncated at ``width`` with the standard
+    backpressure rule.
+    """
+    ticks = len(tick_records)
+    values = np.zeros((ticks, n_nodes, width), np.float32)
+    strata = np.zeros((ticks, n_nodes, width), np.int32)
+    counts = np.zeros((ticks, n_nodes), np.int32)
+    offered = np.zeros((ticks, n_nodes), np.int32)
+    exact_sum = 0.0
+    exact_count = 0
+    for t, (v, s) in enumerate(tick_records):
+        v = np.asarray(v, np.float32)
+        s = np.asarray(s, np.int32)
+        exact_sum += float(v.sum())
+        exact_count += len(v)
+        for node in range(n_nodes):
+            vv, ss = v[node::n_nodes], s[node::n_nodes]
+            offered[t, node] = len(vv)
+            counts[t, node] = _pack_prefix(values[t, node], strata[t, node],
+                                           vv, ss, 0, width)
     return IngestBatch(values, strata, counts, offered, exact_sum,
                        exact_count)

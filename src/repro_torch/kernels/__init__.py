@@ -16,6 +16,7 @@ LAUNCHES: dict[str, int] = {
     "quantile_compact": 0,
     "sample_mask": 0,
     "segment_sum": 0,
+    "flash_attention": 0,
 }
 
 

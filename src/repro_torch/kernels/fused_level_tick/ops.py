@@ -15,7 +15,9 @@ import torch
 from repro_torch.kernels import LAUNCHES, _build
 from repro_torch.kernels.fused_level_tick import ref
 
-MAX_STRATA = 32
+# Per-stratum block state sits in dynamic shared memory (12 words a
+# stratum: 192 KB at 4,096), the allocation's arrays in a global scratch.
+MAX_STRATA = 4096
 _POLICIES = {"fair": 0, "proportional": 1, "neyman": 2}
 
 
@@ -24,10 +26,12 @@ def _lib():
     if lib.fused_level_tick_launch.argtypes is None:
         P, I = ctypes.c_void_p, ctypes.c_int
         lib.fused_level_tick_launch.argtypes = (
-            [P] * 7 + [I] * 6 + [P] * 9 + [P])
+            [P] * 7 + [I] * 6 + [P] * 10 + [P])
         lib.fused_level_tick_launch.restype = I
         lib.fused_select_launch.argtypes = [P, P, P, P, I, I, P, P]
         lib.fused_select_launch.restype = I
+        lib.fused_level_tick_scratch_words.argtypes = [I]
+        lib.fused_level_tick_scratch_words.restype = I
     return lib
 
 
@@ -100,11 +104,13 @@ def fused_level_tick(values, strata, valid, priorities, w_in, c_in,
     c, res, y, w_out, c_out = (torch.empty((n, num_strata), **f32)
                                for _ in range(5))
     lib = _lib()
+    scratch = torch.empty(
+        (n * lib.fused_level_tick_scratch_words(num_strata),), **f32)
     P = _build.ptr
     rc = lib.fused_level_tick_launch(
         P(values), P(strata), P(valid), P(priorities), P(w_in), P(c_in),
         P(size), n, cap, num_strata, out_capacity, _POLICIES[allocation],
-        int(bool(async_calibration)), P(keep), P(values_c), P(strata_c),
+        int(bool(async_calibration)), P(scratch), P(keep), P(values_c), P(strata_c),
         P(n_keep), P(c), P(res), P(y), P(w_out), P(c_out),
         _build.stream_of(values))
     _build.check(lib, rc, what)

@@ -1,0 +1,299 @@
+"""Serving launcher, one-shot mode: the ApproxIoT telemetry plane over an
+inference fleet.
+
+The port of ``repro.launch.serve``'s one-shot mode. Batched prefill and
+greedy decode of a model of the zoo (random weights from a seed), then
+every serving batch's per-request latency records become one tick of
+ingest into the emulated edge hierarchy (2 edge aggregators → 1 root) on
+a compiled pipeline (``repro_torch.compile``), where the dashboard's
+standing queries (request count → QPS, mean latency, p50/p99 via the
+quantile sketch) are a query tenant answered at the root every window.
+Everything runs on the CUDA card unless ``--device cpu`` is asked for.
+
+Not ported yet, and raising with the ROADMAP item that ports them:
+``--hot-admit`` (Queue 1 item 7), ``--mesh`` (item 12) and the
+continuous ``--serve-loop`` mode (items 10 and 11).
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \\
+        --requests 64 --decode-len 16
+    PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+
+from repro_torch import api
+from repro_torch.configs import registry
+from repro_torch.data import stream as S
+from repro_torch.device import resolve_device
+from repro_torch.models import model as M
+from repro_torch.obs import telemetry as obs_telemetry
+from repro_torch.obs.metrics import metrics_text
+from repro_torch.obs.trace import get_tracer, span
+from repro_torch.optim import train_step
+from repro_torch.query.registry import QueryRegistry
+
+NUM_CLASSES = 4          # request classes = telemetry strata
+EDGE_NODES = 2           # telemetry aggregators in front of the root
+
+_NOT_PORTED = {
+    "hot_admit": "--hot-admit (tenant admit/retire on the live plane) is "
+                 "not ported yet: ROADMAP.md Queue 1 item 7",
+    "mesh": "--mesh (the telemetry plane on a device mesh) is not ported "
+            "yet: ROADMAP.md Queue 1 item 12 ports it to torch.distributed",
+    "serve_loop": "--serve-loop (the continuous serve plane) is not ported "
+                  "yet: ROADMAP.md Queue 1 items 10 (serve/executor.py) and "
+                  "11 (its CLI mode)",
+}
+_SERVE_LOOP_FLAGS = ("duration", "tick_interval", "backpressure",
+                     "queue_capacity", "inject_straggler")
+
+
+def dashboard_registry() -> QueryRegistry:
+    """The dashboard's standing queries, registered once."""
+    return (QueryRegistry()
+            .register_count("requests")
+            .register_sum("latency_total_ms")
+            .register_mean("latency_mean_ms")
+            .register_quantile("latency_q_ms", qs=(0.5, 0.99), capacity=256))
+
+
+def serve_registry(window: int = 4) -> QueryRegistry:
+    """The continuous dashboard: everything the one-shot dashboard
+    answers plus the serve plane's recency queries — "last ``window``
+    windows" latency quantiles and exponentially decayed hot-class
+    counts."""
+    return (dashboard_registry()
+            .register_windowed_quantile("latency_q_recent_ms",
+                                        qs=(0.5, 0.99), capacity=128,
+                                        window=window)
+            .register_decayed_heavy_hitters("hot_latency_keys", k=4,
+                                            width=256, decay=0.8))
+
+
+def telemetry_spec(capacity: int, fraction: float, seed: int = 0,
+                   telemetry: bool = False,
+                   registry_fn=dashboard_registry) -> api.PipelineSpec:
+    """The serving fleet's telemetry plane as one declarative spec:
+    per-request records → 2 edge aggregators → 1 datacenter root, the
+    dashboard (``registry_fn()``) as a query tenant on the shared tree."""
+    return api.PipelineSpec(
+        topology=api.TopologySpec(fanin=(EDGE_NODES, 1), capacity=capacity,
+                                  num_strata=NUM_CLASSES),
+        sampler=api.SamplerSpec(mode="whs", backend="topk",
+                                fraction=fraction),
+        tenants=(registry_fn().as_tenant("dashboard"),),
+        telemetry=api.TelemetrySpec(enabled=telemetry),
+        seed=seed,
+    )
+
+
+def serve_batch(cfg, params, toks: torch.Tensor,
+                decode_len: int) -> torch.Tensor:
+    """One serving batch, the reference's loop: a fresh cache of
+    ``prompt_len + decode_len`` slots, the prompt teacher-forced through
+    the decode step at positions ``0 … prompt_len − 2``, then greedy
+    decode from position ``prompt_len − 1`` to the end. As in the
+    reference, the first decoded input is the prompt's FIRST token
+    (``toks[:, :1]``), not its last. ``toks`` int ``[B, prompt_len]`` on
+    the model's device → the greedy tokens ``[B, decode_len + 1]``
+    (``argmax``, first maximum)."""
+    decode = train_step.make_decode_step(cfg)
+    b, prompt_len = toks.shape
+    max_len = prompt_len + decode_len
+    cache = M.init_cache(cfg, b, max_len, device=toks.device)
+    tok = toks[:, :1]
+    for pos in range(prompt_len - 1):
+        _, cache = decode(params, cache, toks[:, pos:pos + 1], pos)
+    out = []
+    for pos in range(prompt_len - 1, max_len):
+        logits, cache = decode(params, cache, tok, pos)
+        tok = torch.argmax(logits, dim=-1)[:, None]
+        out.append(tok)
+    return torch.cat(out, dim=1)
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="smollm-135m", choices=registry.ARCH_NAMES)
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--requests", type=int, default=64)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--prompt-len", type=int, default=64)
+    ap.add_argument("--decode-len", type=int, default=16)
+    ap.add_argument("--telemetry-fraction", type=float, default=0.25)
+    ap.add_argument("--hot-admit", action="store_true",
+                    help="tenant churn on the live telemetry plane: not "
+                         "ported yet (ROADMAP.md Queue 1 item 7)")
+    ap.add_argument("--mesh", type=int, default=None, metavar="N",
+                    help="the telemetry plane on an N-device mesh: not "
+                         "ported yet (ROADMAP.md Queue 1 item 12)")
+    ap.add_argument("--telemetry", action="store_true",
+                    help="carry EpochTelemetry counters inside the "
+                         "pipeline state (repro_torch.obs) — sample state "
+                         "and dashboard answers stay bit-identical")
+    ap.add_argument("--metrics-dump", default=None, metavar="PATH",
+                    help="write a Prometheus-text metrics snapshot of the "
+                         "telemetry plane to PATH at exit (implies "
+                         "--telemetry)")
+    ap.add_argument("--metrics-every", type=int, default=None, metavar="N",
+                    help="print a metrics snapshot to stdout every N "
+                         "telemetry windows during the epoch (implies "
+                         "--telemetry)")
+    ap.add_argument("--trace", default=None, metavar="PATH",
+                    help="write the host span tracer's Chrome/Perfetto "
+                         "trace.json to PATH")
+    ap.add_argument("--serve-loop", action="store_true",
+                    help="continuous mode: not ported yet (ROADMAP.md "
+                         "Queue 1 items 10 and 11)")
+    ap.add_argument("--duration", type=float, default=5.0, metavar="SEC",
+                    help="serve-loop: wall-clock seconds to pump before "
+                         "draining")
+    ap.add_argument("--tick-interval", type=float, default=0.02,
+                    metavar="SEC",
+                    help="serve-loop: target seconds between pumps")
+    ap.add_argument("--backpressure", default="block",
+                    choices=("block", "drop_oldest", "degrade"),
+                    help="serve-loop: bounded-queue policy when ingest "
+                         "outruns the device")
+    ap.add_argument("--queue-capacity", type=int, default=4096,
+                    help="serve-loop: per-shard bounded queue capacity")
+    ap.add_argument("--inject-straggler", action="store_true",
+                    help="serve-loop: hold one edge shard's deliveries "
+                         "for a full epoch")
+    ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                    help="where the model and the telemetry plane run "
+                         "(default: the CUDA card; it raises without one)")
+    args = ap.parse_args(argv)
+    if args.metrics_dump or args.metrics_every:
+        args.telemetry = True
+
+    n_batches = args.requests // args.batch
+    if n_batches == 0:
+        ap.error(f"--requests {args.requests} < --batch {args.batch}: "
+                 f"no serving batch would run (requests are served in "
+                 f"whole batches)")
+    for flag in ("serve_loop", "hot_admit"):
+        if getattr(args, flag):
+            raise ValueError(_NOT_PORTED[flag])
+    # The serve loop's own options have no behaviour here: set, they ask
+    # for the serve loop.
+    for flag in _SERVE_LOOP_FLAGS:
+        if getattr(args, flag) != ap.get_default(flag):
+            raise ValueError(f"--{flag.replace('_', '-')} belongs to "
+                             + _NOT_PORTED["serve_loop"])
+    if args.mesh is not None:
+        raise ValueError(_NOT_PORTED["mesh"])
+
+    dev = resolve_device(args.device)
+    cfg = registry.get_config(args.arch)
+    if args.smoke:
+        cfg = cfg.reduced()
+
+    params = M.init_params(cfg, seed=0, device=dev)
+
+    rng = np.random.default_rng(0)
+    tick_records: list[tuple[np.ndarray, np.ndarray]] = []
+    t_all = time.time()
+    for _ in range(n_batches):
+        toks = rng.integers(0, cfg.vocab_size, (args.batch, args.prompt_len))
+        t0 = time.time()
+        serve_batch(cfg, params, torch.as_tensor(toks, device=dev),
+                    args.decode_len)
+        _sync(dev)
+        dt = (time.time() - t0) / args.batch
+        # one tick of telemetry per serving batch: ms per request,
+        # stratified by request class
+        tick_records.append((
+            np.full((args.batch,), dt * 1000, np.float32),
+            rng.integers(0, NUM_CLASSES, args.batch).astype(np.int32)))
+    wall = time.time() - t_all
+
+    # ---- telemetry through the pipeline ----------------------------------
+    # Each serving batch is one tick into the 2→1 hierarchy; the pipeline
+    # samples at every hop and the dashboard tenant's standing queries are
+    # answered at the root each window.
+    capacity = max(64, args.batch)
+    m = sum(len(v) for v, _ in tick_records)
+    pipe = api.compile(telemetry_spec(capacity, args.telemetry_fraction,
+                                      telemetry=args.telemetry), device=dev)
+    state = pipe.init()
+    with span("ingest", ticks=len(tick_records)):
+        batch = S.ticks_to_ingest(tick_records, n_nodes=EDGE_NODES,
+                                  width=capacity)
+    # --metrics-every N slices the epoch into N-tick chunks and exposes
+    # the /metrics surface between them; without it the one chunk is the
+    # whole epoch.
+    n_ticks = len(batch.values)
+    step = max(args.metrics_every or n_ticks, 1)
+    rows = []
+    for s0 in range(0, n_ticks, step):
+        s1 = min(s0 + step, n_ticks)
+        with span("epoch_dispatch", ticks=s1 - s0):
+            state, wa = pipe.run_epoch(
+                state, pipe.default_key, batch.values[s0:s1],
+                batch.strata[s0:s1], batch.counts[s0:s1])
+        with span("block_until_ready"):
+            _sync(dev)
+        rows.extend(pipe.rows(wa))
+        if args.metrics_every:
+            print(f"--- metrics after {s1}/{n_ticks} ticks ---")
+            print(metrics_text(pipeline=pipe, state=state,
+                               tracer=get_tracer()))
+
+    def a(name, row):
+        return pipe.answer(row["answers"], name, tenant="dashboard")
+
+    def bnd(name, row):
+        return pipe.answer(row["bounds"], name, tenant="dashboard")
+
+    # CLT queries aggregate across windows; the quantile sketch is
+    # continuous, so the last window answers over every request served.
+    last = rows[-1]
+    n_est = float(sum(a("requests", r)[0] for r in rows))
+    total_est = float(sum(a("latency_total_ms", r)[0] for r in rows))
+    mean_est = total_est / max(n_est, 1e-9)
+    mean_bnd = float(max(bnd("latency_mean_ms", r)[0] for r in rows))
+    p50, p99 = a("latency_q_ms", last)
+    exact_all = np.concatenate([v for v, _ in tick_records])
+    exact_mean = float(exact_all.mean())
+    n_kept = int(sum(r["n_sampled"] for r in rows))
+    print(f"served {m} requests in {wall:.1f}s")
+    print(f"telemetry plane: {len(rows)} windows through the "
+          f"{EDGE_NODES}→1 hierarchy, {pipe.plan.k} standing queries, "
+          f"1 fused dispatch, {n_kept}/{m} records at the root")
+    print(f"  QPS              ≈ {n_est / max(wall, 1e-9):.2f}")
+    print(f"  total latency-ms ≈ {total_est:.1f} "
+          f"± {float(sum(bnd('latency_total_ms', r)[0] for r in rows)):.1f}"
+          f" (2σ)")
+    print(f"  mean latency-ms  ≈ {mean_est:.2f} ± {mean_bnd:.2f} "
+          f"(exact {exact_mean:.2f})")
+    print(f"  p50 / p99 ms     ≈ {float(p50):.2f} / {float(p99):.2f} "
+          f"(sketch rank-ε {float(bnd('latency_q_ms', last)[0]):.3f})")
+    snap = obs_telemetry.snapshot(state)
+    if snap is not None:
+        print(f"  telemetry        {snap['windows']} windows, realized "
+              f"±2σ {snap['bound_2sigma']:.3e} "
+              f"(rel {snap['rel_bound_2sigma']:.4f})")
+    if args.metrics_dump:
+        text = metrics_text(pipeline=pipe, state=state, tracer=get_tracer())
+        with open(args.metrics_dump, "w") as f:
+            f.write(text)
+        print(f"  wrote {args.metrics_dump}")
+    if args.trace:
+        get_tracer().save(args.trace)
+        print(f"  wrote {args.trace}")
+    return mean_est, exact_mean
+
+
+if __name__ == "__main__":
+    main()

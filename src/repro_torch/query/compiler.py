@@ -410,6 +410,11 @@ class SlottedTenantPlan:
         self.n_out = off            # PUBLIC (compacted) width
         self._cols = None           # lazy padded→public column map
 
+    @property
+    def k(self) -> int:
+        """Standing queries over the live tenants."""
+        return sum(len(e[1]) for e in self.entries)
+
     def plan_for(self, tenant: str) -> CompiledQueryPlan:
         if tenant not in self._by_name:
             raise KeyError(f"unknown tenant {tenant!r}; "

@@ -13,7 +13,12 @@ are compared bitwise; ``stratified_stats``' Σx and Σx² within
 sketches that call them (``hh_update``, ``quantile_update``) launch them
 as often as their design says. ``sample_mask`` and the ordered
 ``segment_sum`` are compared bitwise too (the latter against the CPU's
-``index_add_``, on sums whose value depends on their order).
+``index_add_``, on sums whose value depends on their order). The
+``pallas_fused`` kernels are held bitwise above 32 strata per node too.
+``flash_attention`` is held to its plain version within
+``FLASH_F32_TOL`` in f32 and one bf16 ulp in bf16 (see
+``assert_flash_close``), with its GQA head mapping, its launch count in
+the model's prefill, and a build failure that raises.
 """
 import numpy as np
 import pytest
@@ -347,3 +352,180 @@ def test_pallas_backend_on_a_wide_level(cuda_device):
     for name in ("selected", "c", "y", "reservoir"):
         _bits(getattr(got, name).cpu().numpy(),
               getattr(want, name).numpy(), name)
+
+
+# ---- pallas_fused above 32 strata per node ---------------------------------
+# (n, cap, X, budget, fill, packed, allocation, out_capacity, ties)
+WIDE_GRID = [
+    (2, 4096, 33, 900, 0.9, False, "fair", 800, False),
+    (4, 11008, 64, 1100, 0.73, True, "neyman", 1100, True),
+    (2, 8192, 64, 2000, 0.8, False, "proportional", 1500, False),
+    (2, 8192, 1000, 1500, 0.9, False, "proportional", 1200, False),
+    (1, 8192, 1000, 3000, 0.95, True, "fair", 3000, True),
+    (1, 8192, 1000, 2500, 0.9, False, "neyman", 2000, False),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "n,cap,x,budget,fill,packed,allocation,out_cap,ties", WIDE_GRID)
+def test_fused_level_tick_kernel_takes_many_strata(cuda_device, n, cap, x,
+                                                   budget, fill, packed,
+                                                   allocation, out_cap,
+                                                   ties):
+    """More than 32 strata per node: the per-stratum state moved to
+    dynamic shared memory and a global scratch; still bitwise."""
+    arrs = [torch.from_numpy(a) for a in _level(n + cap + x, n, cap, x, fill,
+                                                packed, ties)]
+    size = torch.tensor(float(budget))
+    want = tft_ref.fused_level_tick(*arrs, size, x, out_cap,
+                                    allocation=allocation)
+    reset_launches()
+    got = tft.fused_level_tick(*(a.to(cuda_device) for a in arrs),
+                               size.to(cuda_device), x, out_cap,
+                               allocation=allocation)
+    torch.cuda.synchronize()
+    assert LAUNCHES["fused_level_tick"] == 1
+    for name, g, w in zip(NAMES, got, want):
+        _bits(g.cpu().numpy(), w.numpy(), name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,x", [(2_200, 33), (8_800, 64), (20_000, 1000)])
+def test_fused_select_kernel_takes_many_strata(cuda_device, m, x):
+    _, strata, valid, u, _, _ = _level(m + x, 1, m, x, 0.9, False, True)
+    t = [torch.from_numpy(a[0]) for a in (u, strata, valid)]
+    c = torch.bincount(t[1][t[2]].long(), minlength=x).float()
+    res = torch.minimum(c, torch.arange(x).float() % 7 + 1.0)
+    want = tft_ref.fused_select(*t, res, x)
+    got = tft.fused_select(*(a.to(cuda_device) for a in t),
+                           res.to(cuda_device), x)
+    _bits(got.cpu().numpy(), want.numpy())
+
+
+# ---- flash_attention ---------------------------------------------------------
+from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as tfa  # noqa: E402
+from repro_torch.kernels.flash_attention import ref as tfa_ref  # noqa: E402
+
+# The reference test's shapes (B, Hq, Hkv, S, D), and SmolLM-135M's prefill.
+FLASH_SHAPES = [(1, 2, 1, 128, 64), (2, 4, 2, 256, 64), (1, 8, 2, 256, 128),
+                (2, 3, 3, 128, 32)]
+SMOLLM_PREFILL = (8, 9, 3, 2048, 64)
+FLASH_F32_TOL = 1e-5
+
+
+def _qkv(shape, dtype, seed=0):
+    b, hq, hkv, s, d = shape
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.normal(size=sh).astype(np.float32)).to(dtype)
+            for sh in ((b, hq, s, d), (b, hkv, s, d), (b, hkv, s, d))]
+
+
+def _bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """Spacing of bf16 numbers (8 significant bits) at |x|."""
+    e = torch.floor(torch.log2(x.abs().clamp_min(2.0 ** -126)))
+    return torch.exp2(e - 7)
+
+
+def assert_flash_close(got: torch.Tensor, want: torch.Tensor) -> None:
+    got, want = got.float().cpu(), want.float().cpu()
+    assert torch.isfinite(got).all()
+    err = (got - want).abs()
+    # bf16: the kernel and the plain version round p at the same values
+    # (same kv blocks, same running max) and differ only in the order of
+    # their f32 sums before the final rounding to bf16, so an element may
+    # land one bf16 ulp away: the ulp at its own magnitude, and near zero
+    # at the output's RMS magnitude.
+    rms = want.pow(2).mean().sqrt()
+    tol = torch.maximum(_bf16_ulp(want), _bf16_ulp(rms))
+    assert bool((err <= tol).all()), float((err - tol).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", FLASH_SHAPES)
+def test_flash_attention_kernel_matches_plain(cuda_device, shape, dtype):
+    q, k, v = (t.to(cuda_device) for t in _qkv(shape, dtype))
+    want = tfa_ref.flash_attention(q, k, v)
+    reset_launches()
+    got = tfa.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert LAUNCHES["flash_attention"] == 1
+    assert got.dtype == dtype and got.shape == q.shape
+    if dtype == torch.float32:
+        # f32: only the order of the f32 sums and exp's last bit differ.
+        torch.testing.assert_close(got, want, rtol=FLASH_F32_TOL,
+                                   atol=FLASH_F32_TOL)
+    else:
+        assert_flash_close(got, want)
+
+
+@pytest.mark.cuda
+def test_flash_attention_kernel_at_smollm_prefill(cuda_device):
+    q, k, v = (t.to(cuda_device) for t in _qkv(SMOLLM_PREFILL,
+                                                torch.bfloat16, 1))
+    want = tfa_ref.flash_attention(q, k, v)
+    got = tfa.flash_attention(q, k, v)
+    assert_flash_close(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 4, 4, 256, 64), (1, 9, 3, 256, 64),
+                                   (1, 8, 2, 384, 32)])
+def test_flash_attention_kernel_maps_kv_heads(cuda_device, shape):
+    """Query head h reads kv head h // (Hq/Hkv): each kv head gets its own
+    offset, so a wrong mapping shows; against the head-repeating oracle."""
+    q, k, v = _qkv(shape, torch.float32, 2)
+    v = v + 10.0 * torch.arange(shape[2]).float()[None, :, None, None]
+    q, k, v = (t.to(cuda_device) for t in (q, k, v))
+    got = tfa.flash_attention(q, k, v)
+    torch.testing.assert_close(got, tfa_ref.flash_attention(q, k, v),
+                               rtol=FLASH_F32_TOL, atol=FLASH_F32_TOL)
+    torch.testing.assert_close(got, tfa_ref.attention(q, k, v),
+                               rtol=FLASH_F32_TOL, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_flash_attention_build_failure_raises(cuda_device, tmp_path,
+                                              monkeypatch):
+    """A kernel that does not build raises on a CUDA tensor; nothing falls
+    back to the plain version."""
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    (csrc / "flash_attention.cu").write_text("this is not CUDA C++\n")
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "_LOADED", {})
+    q, k, v = (t.to(cuda_device) for t in _qkv(FLASH_SHAPES[0],
+                                                torch.float32))
+    reset_launches()
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        tfa.flash_attention(q, k, v)
+    assert LAUNCHES["flash_attention"] == 0
+
+
+@pytest.mark.cuda
+def test_prefill_launches_flash_attention_per_layer(cuda_device):
+    """The model's pallas path launches the kernel once per layer, and
+    its logits agree with the xla path and with the CPU."""
+    import dataclasses
+
+    from repro_torch.configs import registry as treg
+    from repro_torch.models import model as tmodel
+
+    cfg = dataclasses.replace(treg.get_config("smollm-135m").reduced(),
+                              attention_impl="pallas")
+    params = tmodel.init_params(cfg, seed=0, device="cpu")
+    toks = torch.from_numpy(
+        np.random.default_rng(3).integers(0, cfg.vocab_size, (2, 256)))
+    cpu = tmodel.forward(cfg, params, {"tokens": toks})[0]
+    reset_launches()
+    card = tmodel.forward(cfg, params.to(cuda_device),
+                          {"tokens": toks.to(cuda_device)})[0]
+    torch.cuda.synchronize()
+    assert LAUNCHES["flash_attention"] == cfg.num_layers
+    xla = tmodel.forward(dataclasses.replace(cfg, attention_impl="xla"),
+                         params, {"tokens": toks.to(cuda_device)})[0]
+    torch.testing.assert_close(card.cpu(), cpu, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(card, xla, rtol=1e-4, atol=1e-4)

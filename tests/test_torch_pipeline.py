@@ -233,8 +233,13 @@ def test_port_never_imports_jax_or_the_reference():
     files = sorted((REPO / "src" / "repro_torch").rglob("*.py"))
     assert REPO / "src" / "repro_torch" / "query" / "compiler.py" in files
     assert REPO / "src" / "repro_torch" / "launch" / "analytics.py" in files
+    for mod in ("launch/serve.py", "models/model.py", "models/layers.py",
+                "kernels/flash_attention/ops.py", "optim/train_step.py",
+                "configs/registry.py", "configs/smollm_135m.py"):
+        assert REPO / "src" / "repro_torch" / mod in files, mod
     files += [REPO / "chip_smoke.py", REPO / "examples" / "quickstart_torch.py",
-              REPO / "examples" / "taxi_analytics_torch.py"]
+              REPO / "examples" / "taxi_analytics_torch.py",
+              REPO / "tools" / "flash_planted_faults.py"]
     assert len(files) > 20
     for path in files:
         for mod in _imports(path):
@@ -249,7 +254,11 @@ def test_port_never_imports_jax_or_the_reference():
             "repro_torch.query.compiler, repro_torch.query.sketches, "
             "repro_torch.launch.analytics, repro_torch.strata, "
             "repro_torch.runtime.budget, repro_torch.obs.metrics, "
-            "repro_torch.obs.trace\n"
+            "repro_torch.obs.trace, repro_torch.launch.serve, "
+            "repro_torch.models.model, repro_torch.optim.train_step, "
+            "repro_torch.kernels.flash_attention.ops\n"
+            "from repro_torch.configs import registry\n"
+            "[registry.get_config(n) for n in registry.ARCH_NAMES]\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]\n"
             "print(bad); sys.exit(1 if bad else 0)")

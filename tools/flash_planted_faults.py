@@ -1,0 +1,81 @@
+"""Planted faults in the ``flash_attention`` kernel, read by
+``chip_smoke.py``'s checks, on a CUDA card.
+
+For each case — the kernel as it is, then one broken copy per fault —
+``src/`` and ``chip_smoke.py`` are copied into a temporary directory, the
+fault is written into the copy's ``csrc/flash_attention.cu``, and a child
+process runs there: the kernel against its plain version at SmolLM-135M's
+attention shape, then ``chip_smoke.run_prefill`` (SmolLM-135M's bf16
+prefill, pallas against xla, and the f32 B 1 S 512 prefill against the
+CPU) with its failures printed instead of fatal. Each case prints what
+the checks read: the argmax agreement and max abs difference of the bf16
+prefill, the f32 differences, and which checks failed. The checkout
+itself is never changed.
+
+    python3 tools/flash_planted_faults.py
+"""
+from __future__ import annotations
+
+import shutil
+import subprocess
+import sys
+import tempfile
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+KERNEL = Path("src/repro_torch/csrc/flash_attention.cu")
+# name → (text of the kernel, its faulty replacement); None: the kernel
+# as it is.
+FAULTS = {
+    "none": None,
+    "kv-head mapping h % Hkv": ("(bh % hq) / (hq / hkv)", "(bh % hq) % hkv"),
+    "causal mask admits one future token": ("k0 + c <= row",
+                                            "k0 + c <= row + 1"),
+}
+CHILD = """
+import sys
+import torch
+sys.path.insert(0, "src")
+import chip_smoke as C
+from repro_torch.kernels import LAUNCHES, reset_launches
+from repro_torch.kernels.flash_attention import ops, ref
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+failed = []
+C.fail = lambda msg: (failed.append(msg), print("check failed:", msg))
+dev = torch.device("cuda", 0)
+q, k, v = C.flash_inputs(C.SMOLLM_ATTN, torch.bfloat16, 99, dev)
+got, want = ops.flash_attention(q, k, v), ref.flash_attention(q, k, v)
+print(f"kernel vs plain {C.SMOLLM_ATTN} bf16: max abs "
+      f"{C.max_abs(got, want)}, within one bf16 ulp: "
+      f"{C.flash_agrees(got, want)}")
+del q, k, v, got, want
+C.run_prefill(dev, LAUNCHES, reset_launches)
+print(f"prefill checks failed: {len(failed)}")
+"""
+
+
+def main() -> int:
+    rc = 0
+    for name, fault in FAULTS.items():
+        with tempfile.TemporaryDirectory() as tmp:
+            shutil.copytree(ROOT / "src", Path(tmp) / "src",
+                            ignore=shutil.ignore_patterns("__pycache__"))
+            shutil.copy(ROOT / "chip_smoke.py", tmp)
+            if fault is not None:
+                src = Path(tmp) / KERNEL
+                text = src.read_text()
+                if text.count(fault[0]) != 1:
+                    print(f"{name}: {fault[0]!r} is not once in {KERNEL}")
+                    return 1
+                src.write_text(text.replace(*fault))
+            print(f"== fault: {name}", flush=True)
+            rc |= subprocess.run([sys.executable, "-c", CHILD],
+                                 cwd=tmp).returncode
+    return rc
+
+
+if __name__ == "__main__":
+    sys.exit(main())
