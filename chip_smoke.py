@@ -6,22 +6,26 @@ Drives ``src/repro_torch`` only (nothing of JAX or of the JAX package):
 
 1. prints the card (``nvidia-smi`` name and power limit) and builds the
    CUDA kernels from ``src/repro_torch/csrc`` with ``nvcc`` for sm_90a,
-   one ``nvcc`` per source, all at once;
+   one ``nvcc`` per source, all at once; counts the bf16 flash kernel's
+   ``HGMMA`` and ``UTMALDG`` instructions in its SASS (``cuobjdump``);
 2. holds each kernel against its plain PyTorch version on the same
    inputs — the sampler kernels at the paper testbed's shapes, at 32
    strata and above (64 per node), saturated or not, front-packed or
    not, with ``out_capacity`` below the keep count, with exact f32
    priority ties, for the fair, proportional and neyman allocations;
-   ``cms_update`` at the tenants' shapes and the reference test's;
+   ``cms_update`` at the tenants' shapes and the reference test's, with
+   no items, one key for every item, depth 6 and widths 1 to 65,536;
    ``quantile_compact`` at every (slots, targets) shape one root window
    of the tenant path launches and at slot counts that are not a
    multiple of its tile; ``sample_mask`` at the three shapes of the
    ``pallas`` path, with ties and sentinels, and at M = 1, 333, 44,033;
    the ordered ``segment_sum`` against the CPU's ``index_add_`` on sums
    whose value depends on their order; ``flash_attention`` at the
-   reference test's shapes in f32 and bf16, at SmolLM-135M's prefill and
-   at Qwen3-4B's heads, against its plain version (``FLASH_F32_TOL``, or
-   one bf16 ulp) and the S×S oracle (``ORACLE_TOL``). Everything else
+   reference test's shapes in f32 and bf16, at SmolLM-135M's prefill, at
+   Qwen3-4B's heads and, in bf16, over S 16 to 2,048, head dims 32, 64
+   and 128 and GQA ratios 1, 3 and 4, against its plain version
+   (``FLASH_F32_TOL``, or one bf16 ulp) and the S×S oracle
+   (``ORACLE_TOL``). Everything else
    agrees bitwise except ``stratified_stats``' Σx and Σx², held to
    ``SUMS_RTOL`` (a fixed-order block reduction, not item order). Then
    the neyman reservoirs and masks
@@ -55,7 +59,12 @@ Drives ``src/repro_torch`` only (nothing of JAX or of the JAX package):
    f32 batch whose greedy tokens must be the CPU's;
 4. times each kernel at the main path's shapes beside its bound, its
    plain version and (where one exists) one PyTorch call computing the
-   same function, as device time from the profiler's CUDA trace, times
+   same function, as device time from the profiler's CUDA trace (and
+   prints ``cms_update``'s and the bf16 ``flash_attention``'s ratio to
+   that call beside their earlier designs'; ``cms_update`` at (32000, 4,
+   8192), the
+   bf16 kernel at head dim 32 and the f32 kernel at (1, 9, 3, 512, 64)
+   too), times
    the WHS epochs with and without tenants and the SRS epochs, profiles
    one epoch of each WHS path, prints the analytics runs' items/s per
    engine and backend, and the prefill's ms per forward and tokens/s;
@@ -402,6 +411,18 @@ def cms_inputs(rng, m):
     return torch.from_numpy(keys), torch.from_numpy(w)
 
 
+# (M, depth, width, every item on one key): the tenants' two launches, the
+# reference test's shapes, no items, width 1, one-key streams, depth 6,
+# widths to 65,536 and more items than one staged tile.
+CMS_SHAPES = ((2200, 4, 1024, False), (2200, 4, 256, False),
+              (512, 4, 256, False), (4096, 2, 1024, False),
+              (5000, 6, 128, False), (32000, 4, 8192, False),
+              (0, 4, 1024, False), (77, 1, 1, False), (2200, 4, 1024, True),
+              (2200, 4, 256, True), (5000, 1, 1, True),
+              (4096, 6, 65536, True), (32000, 6, 65536, False),
+              (9000, 6, 512, False))
+
+
 def compact_shapes(plan, m):
     """The (slots, targets) shape of every ``quantile_compact`` launch of
     one root window, in launch order, for a tenant plan whose root holds
@@ -434,20 +455,19 @@ def check_sketch_kernels(dev, path_shapes) -> dict:
 
     rng = np.random.default_rng(12)
     err = {"cms_update": 0.0, "quantile_compact": 0.0}
-    for m, depth, width in [(2200, 4, 1024), (2200, 4, 256), (512, 4, 256),
-                            (4096, 2, 1024), (5000, 6, 128),
-                            (32000, 4, 8192)]:
+    for m, depth, width, one_key in CMS_SHAPES:
         k, w = cms_inputs(rng, m)
+        if one_key:
+            k[:] = k[0] if m else 0
         plain = sk_ref.cms_update(k, w, depth, width)
         card = sk.cms_update(k.to(dev), w.to(dev), depth, width)
         torch.cuda.synchronize()
         if not same_bits(plain, card):
             fail(f"cms_update differs from the plain version at M={m} "
-                 f"depth={depth} width={width}")
+                 f"depth={depth} width={width} one key={one_key}")
         err["cms_update"] = max(err["cms_update"], max_abs(plain, card))
-    print("cms_update vs plain: (2200, 4, 1024) (2200, 4, 256) "
-          "(512, 4, 256) (4096, 2, 1024) (5000, 6, 128) (32000, 4, 8192): "
-          "bitwise equal")
+    print(f"cms_update vs plain at (M, depth, width, one key) = "
+          f"{CMS_SHAPES}: bitwise equal")
     shapes = sorted(set(path_shapes) | {(1025, 300), (3001, 128), (5, 3)})
     for p, c in shapes:
         args = intervals(rng, p, c)
@@ -666,6 +686,16 @@ FLASH_SHAPES = ((1, 2, 1, 128, 64), (2, 4, 2, 256, 64), (1, 8, 2, 256, 128),
                 (2, 3, 3, 128, 32))
 SMOLLM_ATTN = (8, 9, 3, 2048, 64)
 QWEN3_ATTN = (1, 32, 8, 4096, 128)
+# The bf16 (tensor-core) kernel over S from one short block to 16 tiles,
+# each head dim and query heads per kv head 1, 3 and 4.
+FLASH_BF16_GRID = tuple((1, 2 * g, 2, s, d) for s in (16, 64, 128, 256, 2048)
+                        for d in (32, 64, 128) for g in (1, 3, 4))
+# The earlier designs' kernel time over the library call's at the same
+# shapes (PERF.md's kernel table, NVIDIA H100 80GB HBM3, 700.00 W):
+# cms_update with one thread a bucket against index_add_, flash_attention
+# on the CUDA cores against SDPA at SmolLM-135M's and Qwen3-4B's shapes.
+EARLIER_RATIO = {"cms_update": 17.3, SMOLLM_ATTN: 16.5, QWEN3_ATTN: 24.3}
+F32_ATTN = (1, 9, 3, 512, 64)
 # Kernel vs plain version: f32 only the order of the f32 sums and exp's
 # last bit differ; bf16 both round p at the same values (same kv blocks,
 # same running max), so an output may land one bf16 ulp away, at its own
@@ -701,12 +731,19 @@ def flash_agrees(got: torch.Tensor, want: torch.Tensor) -> bool:
     return bool((err <= torch.maximum(bf16_ulp(want), bf16_ulp(rms))).all())
 
 
+def flash_ops(shape):
+    """Operations of one causal launch: 2 multiply-adds per (row, column ≤
+    row, dim), for Q·Kᵀ and for P·V."""
+    b, hq, hkv, s, d = shape
+    return 2 * 2 * b * hq * (s * (s + 1) // 2) * d
+
+
 def flash_bound(shape):
     """(ms, by): the causal work's operations over the tensor cores' bf16
     rate — 2 multiply-adds per (row, column ≤ row, dim) for Q·Kᵀ and P·V —
     or q, k, v read and o written once over the HBM rate."""
     b, hq, hkv, s, d = shape
-    ops = 2 * 2 * b * hq * (s * (s + 1) // 2) * d
+    ops = flash_ops(shape)
     nbytes = 2 * b * s * d * (2 * hq + 2 * hkv)
     t_o, t_b = ops / TC_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
     return (t_o, "operations") if t_o >= t_b else (t_b, "bytes")
@@ -722,7 +759,8 @@ def check_flash(dev) -> float:
     cases = [(sh, dt) for sh in FLASH_SHAPES
              for dt in (torch.float32, torch.bfloat16)]
     cases += [(SMOLLM_ATTN, torch.bfloat16), (QWEN3_ATTN, torch.bfloat16),
-              (SMOLLM_ATTN[:3] + (512, 64), torch.float32)]
+              (F32_ATTN, torch.float32)]
+    cases += [(sh, torch.bfloat16) for sh in FLASH_BF16_GRID]
     for i, (shape, dt) in enumerate(cases):
         q, k, v = flash_inputs(shape, dt, i, dev)
         plain = fa_ref.flash_attention(q, k, v)
@@ -743,10 +781,14 @@ def check_flash(dev) -> float:
             fail(f"flash_attention differs from the S×S oracle at {shape} "
                  f"{dt} beyond {tol}: max abs {max_abs(card, oracle)}")
         worst = max(worst, max_abs(card, plain))
-        print(f"flash_attention vs plain at {shape} {dt}: max abs "
-              f"{max_abs(card, plain):.3e}; vs oracle "
-              f"{max_abs(card, oracle):.3e}")
+        if shape not in FLASH_BF16_GRID:
+            print(f"flash_attention vs plain at {shape} {dt}: max abs "
+                  f"{max_abs(card, plain):.3e}; vs oracle "
+                  f"{max_abs(card, oracle):.3e}")
         del q, k, v, plain, card, oracle
+    print(f"flash_attention bf16 over (B, Hq, Hkv, S, D) = "
+          f"{FLASH_BF16_GRID}: within one bf16 ulp of the plain version and "
+          f"{ORACLE_TOL[torch.bfloat16]} of the oracle")
     return worst
 
 
@@ -1131,6 +1173,24 @@ def profile_call(what, fn, units, unit):
         print(f"  {us / 1e3:8.3f} ms  {count:5d}x  {name[:90]}")
 
 
+def sass_counts(lib: Path) -> None:
+    """Count the bf16 flash kernel's tensor-core (HGMMA) and TMA
+    (UTMALDG) instructions in the library's SASS, where the toolkit has
+    ``cuobjdump``; fail if either is missing."""
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        print("cuobjdump not found: SASS instruction counts not taken")
+        return
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    n = {op: sass.count(op) for op in ("HGMMA", "UTMALDG")}
+    print(f"SASS of {lib.name}: {n['HGMMA']} HGMMA, {n['UTMALDG']} UTMALDG")
+    if not all(n.values()):
+        fail(f"flash_attention's SASS lacks wgmma or TMA loads: {n}")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a "
@@ -1170,6 +1230,7 @@ def main() -> None:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
+    sass_counts(_build.library_path("flash_attention"))
 
     # 2. Each kernel against its plain version.
     qspec = tenant_spec(P)
@@ -1407,6 +1468,20 @@ def main() -> None:
                        / n_cms,
                        device_ms(lambda: cms_all(sk_ref), 5) / n_cms,
                        device_ms(cms_library) / n_cms)
+    ms_c, _, lib_c = t["cms_update"]
+    print(f"cms_update at the tenants' (2200, 4, 1024) and (2200, 4, 256): "
+          f"device {ms_c:.5f} ms/launch, index_add_ {lib_c:.5f} ms: kernel "
+          f"/ library {ms_c / lib_c:.2f}x (earlier design: "
+          f"{EARLIER_RATIO['cms_update']}x)")
+    k, w = (a.to(dev) for a in cms_inputs(rng, 32000))
+    flat = (torch.arange(4, device=dev)[:, None] * 8192
+            + sk_ref.hash_buckets(k, 4, 8192)).reshape(-1)
+    wf = w.expand(4, -1).reshape(-1)
+    big = (device_ms(lambda: sk.cms_update(k, w, 4, 8192), 10),
+           device_ms(lambda: torch.zeros(4 * 8192, device=dev).index_add_(
+               0, flat, wf), 10))
+    print(f"cms_update at (32000, 4, 8192): device {big[0]:.5f} ms, "
+          f"index_add_ {big[1]:.5f} ms ({big[0] / big[1]:.2f}x)")
     t["quantile_compact"] = (device_ms(lambda: qc_all(sk),
                                        name="quantile_compact") / n_qc,
                              device_ms(lambda: qc_all(sk_ref), 5) / n_qc,
@@ -1496,7 +1571,7 @@ def main() -> None:
     from repro_torch.kernels.flash_attention import ref as fa_ref
 
     flash = {}
-    for shape in (SMOLLM_ATTN, QWEN3_ATTN):
+    for shape in (SMOLLM_ATTN, QWEN3_ATTN, SMOLLM_ATTN[:4] + (32,)):
         q, k, v = flash_inputs(shape, torch.bfloat16, 99, dev)
         flash[shape] = (
             device_ms(lambda: fa.flash_attention(q, k, v), 10,
@@ -1506,11 +1581,23 @@ def main() -> None:
                 q, k, v, is_causal=True, enable_gqa=True), 10),
             flash_bound(shape))
         ms_f, plain_f, lib_f, b_f = flash[shape]
+        was = (f" (earlier design: {EARLIER_RATIO[shape]}x)"
+               if shape in EARLIER_RATIO else "")
         print(f"flash_attention {shape} bf16: device {ms_f:.4f} ms/launch, "
               f"bound {b_f[0]:.4f} ms ({b_f[1]}), {b_f[0] / ms_f:.2%} of "
-              f"the bound; plain {plain_f:.4f} ms; SDPA {lib_f:.4f} ms "
-              f"({ms_f / lib_f:.1f}x the kernel's time)")
+              f"the bound, {flash_ops(shape) / ms_f / 1e9:.1f} TFLOP/s; "
+              f"plain {plain_f:.4f} ms; SDPA {lib_f:.4f} ms; kernel / SDPA "
+              f"{ms_f / lib_f:.2f}x{was}")
         del q, k, v
+    q, k, v = flash_inputs(F32_ATTN, torch.float32, 98, dev)
+    f32 = (device_ms(lambda: fa.flash_attention(q, k, v), 10),
+           device_ms(lambda: fa_ref.flash_attention(q, k, v), 3),
+           device_ms(lambda: F.scaled_dot_product_attention(
+               q, k, v, is_causal=True, enable_gqa=True), 10))
+    print(f"flash_attention {F32_ATTN} f32 (CUDA cores): device "
+          f"{f32[0]:.4f} ms/launch; plain {f32[1]:.4f} ms; SDPA {f32[2]:.4f} "
+          f"ms; kernel / SDPA {f32[0] / f32[2]:.2f}x")
+    del q, k, v
     t["flash_attention"] = flash[SMOLLM_ATTN][:3]
     bounds["flash_attention"] = flash[SMOLLM_ATTN][3]
     tiny = torch.zeros(1, device=dev)

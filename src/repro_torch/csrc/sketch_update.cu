@@ -11,16 +11,31 @@
 //   4 written per bucket) nor arithmetic at the root's size (M = 2,200
 //   items, depth 4): it is one short pass whose cost is its launch and the
 //   latency of walking the items in order.
-//   What the design does about it: the TPU kernel adds one-hot matmuls,
-//   which sum a bucket's weights in no fixed order. Here every bucket is
-//   owned by one thread (block = one depth row and a chunk of up to 1,024
-//   buckets, thread = one bucket), the items are staged through shared
-//   memory in tiles with their hashed buckets, and each thread walks the
-//   tile in item order, adding the weights that fall in its bucket to a
-//   register. So each bucket's weights are added in item order, as the
-//   plain version's index_add_ does on the CPU, with no float atomics:
-//   the result is bitwise the plain version's at every shape.
-//
+//   The invariant: each bucket's weights are added one at a time, in item
+//   order, starting from 0.0, as the plain version's index_add_ does on the
+//   CPU; so no float atomics and no partial sums of a bucket combined
+//   afterwards, and the result is bitwise the plain version's at every
+//   shape. (The TPU kernel adds one-hot matmuls, in no fixed order.)
+//   What the design does about it: one warp owns one (depth row, bucket),
+//   as csrc/segment_sum.cu's warps own a segment, so the work spreads over
+//   depth x width warps instead of one thread per bucket walking every
+//   item. A block (8 warps: 8 buckets of one depth row) stages a tile of up
+//   to 4,096 items in shared memory, each with its hashed bucket for the
+//   block's row and its weight (the root's 2,200 items are one tile). Each
+//   warp walks the tile in 32-item chunks: one ballot per chunk marks the
+//   items of its bucket (four chunks' ballots taken together, so their
+//   loads overlap), and the warp adds the marked weights in lane order
+//   (the ballot's set bits, lowest first, chunk by chunk; every lane adds
+//   the same broadcast loads, lane 0 writes). Tiles go in item order, so each
+//   bucket's sum keeps item order at any M; the only serial work is one
+//   shared load and one add per item of the warp's own bucket. At the
+//   tenants' widths that is 4,096 warps in 512 blocks (width 1,024) and
+//   1,024 in 128 blocks (256): eight warps a block, not 32, put the narrow
+//   table on 128 SMs rather than 32. From 4,096 buckets a row a block has
+//   32 warps, so each tile is staged a quarter as often. (A block-wide
+//   stable sort of each tile by bucket was the alternative; the ballot
+//   walk needs no sort and no scratch beyond the tile.)
+
 // quantile_compact: for each of C rank targets, the sum of the values of
 // the slots whose weight interval [cumw_prev, cumw) holds it (one slot at
 // most when the intervals partition [0, W), as the caller's do); a target
@@ -41,23 +56,26 @@
 
 namespace {
 
-constexpr int kThreads = 1024;     // buckets per block, cms_update
-constexpr int kTile = 1024;        // items staged per pass, cms_update
+constexpr int kCmsMaxThreads = 1024;   // 32 buckets per block, cms_update
+constexpr int kTile = 4096;        // items staged per pass, cms_update
 constexpr int kTargets = 256;      // targets per block, quantile_compact
 constexpr int kSlots = 1024;       // slots staged per pass, quantile_compact
+constexpr unsigned kFull = 0xffffffffu;
 
 __constant__ uint32_t kMult[6] = {0x9E3779B1u, 0x85EBCA77u, 0xC2B2AE3Du,
                                   0x27D4EB2Fu, 0x165667B1u, 0xD3A2646Du};
 
-// grid (ceil(width / 1024), depth), block min(width, 1024).
-__global__ void __launch_bounds__(kThreads)
+// grid (ceil(width / W), depth), block 32 W: warp w of block (x, d) owns
+// bucket W x + w of depth row d.
+__global__ void __launch_bounds__(kCmsMaxThreads)
 cms_update_kernel(const uint32_t* __restrict__ keys,
                   const float* __restrict__ weights, int m, int width,
                   int shift, float* __restrict__ out) {
   __shared__ int s_bucket[kTile];
   __shared__ float s_weight[kTile];
   const int d = blockIdx.y;
-  const int mine = blockIdx.x * blockDim.x + threadIdx.x;
+  const int lane = threadIdx.x & 31;
+  const int mine = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
   const uint32_t mult = kMult[d];
   float acc = 0.f;
   for (int base = 0; base < m; base += kTile) {
@@ -68,12 +86,22 @@ cms_update_kernel(const uint32_t* __restrict__ keys,
       s_weight[i] = weights[base + i];
     }
     __syncthreads();
-    for (int i = 0; i < n; ++i) {
-      if (s_bucket[i] == mine) acc = acc + s_weight[i];
+    for (int c = 0; c < n; c += 128) {     // four chunks' ballots at once
+      unsigned hit[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int i = c + 32 * u + lane;
+        hit[u] = __ballot_sync(kFull, i < n && s_bucket[i] == mine);
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u)          // their items, in order
+        for (unsigned h = hit[u]; h; h &= h - 1)
+          acc = acc + s_weight[c + 32 * u + __ffs(h) - 1];
     }
     __syncthreads();
   }
-  if (mine < width) out[static_cast<size_t>(d) * width + mine] = acc;
+  if (lane == 0 && mine < width)
+    out[static_cast<size_t>(d) * width + mine] = acc;
 }
 
 // grid ceil(C / 256), block 256.
@@ -114,10 +142,12 @@ const char* repro_cuda_error_string(int code) {
 int cms_update_launch(const uint32_t* keys, const float* weights, int m,
                       int depth, int width, int shift, float* out,
                       cudaStream_t stream) {
-  const int threads = width < kThreads ? width : kThreads;
-  const dim3 grid((width + threads - 1) / threads, depth);
-  cms_update_kernel<<<grid, threads, 0, stream>>>(keys, weights, m, width,
-                                                  shift, out);
+  // 8 warps a block, 32 on tables of 4,096 buckets a row and more (there
+  // are blocks enough to fill the card, and each stages the items once).
+  const int warps = width >= 4096 ? 32 : 8;
+  const dim3 grid((width + warps - 1) / warps, depth);
+  cms_update_kernel<<<grid, warps * 32, 0, stream>>>(keys, weights, m, width,
+                                                     shift, out);
   return static_cast<int>(cudaGetLastError());
 }
 

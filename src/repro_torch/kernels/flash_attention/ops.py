@@ -4,6 +4,12 @@
 ``csrc/flash_attention.cu``; on a CPU tensor it calls the plain version
 in ``ref.py``. Any other case raises: there is no fallback from the card
 to the plain version.
+
+On the card the dtype alone chooses the kernel: bfloat16 runs the
+tensor-core kernel (``wgmma`` fed by TMA loads), float32 the CUDA-core
+kernel, since ``wgmma`` has no float32 form and TF32 would round q and k
+past the float32 tolerances. A kernel that fails to build or launch
+raises; neither stands in for the other.
 """
 from __future__ import annotations
 
@@ -60,7 +66,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor,
         raise ValueError(f"{what}: {hq} query heads do not group over "
                          f"{hkv} kv heads")
     ref.block_size(s)
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    # TMA reads from 16-byte aligned addresses; a view at an odd offset
+    # is copied.
+    q, k, v = (t.contiguous() if t.data_ptr() % 16 == 0 else t.clone(
+        memory_format=torch.contiguous_format) for t in (q, k, v))
     o = torch.empty_like(q)
     lib = _lib()
     P = _build.ptr

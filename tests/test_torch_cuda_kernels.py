@@ -17,8 +17,10 @@ as often as their design says. ``sample_mask`` and the ordered
 ``pallas_fused`` kernels are held bitwise above 32 strata per node too.
 ``flash_attention`` is held to its plain version within
 ``FLASH_F32_TOL`` in f32 and one bf16 ulp in bf16 (see
-``assert_flash_close``), with its GQA head mapping, its launch count in
-the model's prefill, and a build failure that raises.
+``assert_flash_close``), the bf16 (tensor-core) kernel over sequence
+lengths 16 to 2,048, head dims 32, 64 and 128 and GQA ratios 1, 3 and 4,
+with its GQA head mapping in both dtypes, its launch count in the model's
+prefill, and a build failure that raises.
 """
 import numpy as np
 import pytest
@@ -184,6 +186,30 @@ def test_cms_update_kernel_matches_plain(cuda_device, m, depth, width):
     got = tsk.cms_update(k.to(cuda_device), wt.to(cuda_device), depth,
                          width)
     _bits(got.cpu().numpy(), want.numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,depth,width,one_key", [
+    (2200, 4, 1024, True), (2200, 4, 256, True), (5000, 1, 1, True),
+    (32000, 6, 65536, False), (4096, 6, 65536, True), (9000, 6, 512, False),
+    (0, 6, 65536, False)])
+def test_cms_update_kernel_on_one_key_and_wide_tables(cuda_device, m, depth,
+                                                      width, one_key):
+    """Every item on one key (one bucket per row takes all M weights, in
+    item order), tables up to 65,536 buckets a row, six rows, more items
+    than one staged tile: bitwise the plain version."""
+    rng = np.random.default_rng(m + depth + width)
+    keys = rng.integers(-2**31, 2**31, m, dtype=np.int64).astype(np.int32)
+    if one_key:
+        keys[:] = -123456789
+    w = rng.uniform(0.1, 40.0, m).astype(np.float32)
+    w[rng.random(m) < 0.2] = 0.0
+    k, wt = torch.from_numpy(keys), torch.from_numpy(w)
+    reset_launches()
+    got = tsk.cms_update(k.to(cuda_device), wt.to(cuda_device), depth,
+                         width)
+    assert LAUNCHES["cms_update"] == 1
+    _bits(got.cpu().numpy(), tsk_ref.cms_update(k, wt, depth, width).numpy())
 
 
 @pytest.mark.cuda
@@ -471,19 +497,46 @@ def test_flash_attention_kernel_at_smollm_prefill(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(2, 4, 4, 256, 64), (1, 9, 3, 256, 64),
                                    (1, 8, 2, 384, 32)])
-def test_flash_attention_kernel_maps_kv_heads(cuda_device, shape):
+def test_flash_attention_kernel_maps_kv_heads(cuda_device, shape, dtype):
     """Query head h reads kv head h // (Hq/Hkv): each kv head gets its own
-    offset, so a wrong mapping shows; against the head-repeating oracle."""
+    offset, so a wrong mapping shows; against the plain version (f32
+    ``FLASH_F32_TOL``, bf16 one ulp) and the head-repeating oracle (f32
+    1e-4; bf16 2e-2, the reference test's)."""
     q, k, v = _qkv(shape, torch.float32, 2)
     v = v + 10.0 * torch.arange(shape[2]).float()[None, :, None, None]
-    q, k, v = (t.to(cuda_device) for t in (q, k, v))
+    q, k, v = (t.to(dtype).to(cuda_device) for t in (q, k, v))
     got = tfa.flash_attention(q, k, v)
-    torch.testing.assert_close(got, tfa_ref.flash_attention(q, k, v),
-                               rtol=FLASH_F32_TOL, atol=FLASH_F32_TOL)
-    torch.testing.assert_close(got, tfa_ref.attention(q, k, v),
-                               rtol=FLASH_F32_TOL, atol=1e-4)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, tfa_ref.flash_attention(q, k, v),
+                                   rtol=FLASH_F32_TOL, atol=FLASH_F32_TOL)
+        torch.testing.assert_close(got, tfa_ref.attention(q, k, v),
+                                   rtol=FLASH_F32_TOL, atol=1e-4)
+    else:
+        assert_flash_close(got, tfa_ref.flash_attention(q, k, v))
+        torch.testing.assert_close(got.float(),
+                                   tfa_ref.attention(q, k, v).float(),
+                                   rtol=2e-2, atol=2e-2)
+
+
+# The bf16 (tensor-core) kernel's grid of shapes: S from one short block
+# to 16 tiles, each head dim, query heads per kv head 1, 3 and 4.
+BF16_GRID = [(1, 2 * g, 2, s, d) for s in (16, 64, 128, 256, 2048)
+             for d in (32, 64, 128) for g in (1, 3, 4)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", BF16_GRID)
+def test_flash_attention_bf16_kernel_over_shapes(cuda_device, shape):
+    q, k, v = (t.to(cuda_device) for t in _qkv(shape, torch.bfloat16, 3))
+    reset_launches()
+    got = tfa.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert LAUNCHES["flash_attention"] == 1
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    assert_flash_close(got, tfa_ref.flash_attention(q, k, v))
 
 
 @pytest.mark.cuda

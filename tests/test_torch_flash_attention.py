@@ -23,8 +23,11 @@ from repro_torch.kernels import LAUNCHES, reset_launches  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as T  # noqa: E402
 from repro_torch.kernels.flash_attention import ref as Tref  # noqa: E402
 
+# The reference test's shapes, then two short sequences (S < 128: one kv
+# block of S columns, which the card's bf16 kernel reads as a 128-row tile
+# with the rows and columns past S masked).
 SHAPES = [(1, 2, 1, 128, 64), (2, 4, 2, 256, 64), (1, 8, 2, 256, 128),
-          (2, 3, 3, 128, 32)]
+          (2, 3, 3, 128, 32), (1, 4, 2, 64, 64), (1, 6, 2, 16, 32)]
 DTYPES = {"f32": (jnp.float32, torch.float32),
           "bf16": (jnp.bfloat16, torch.bfloat16)}
 TOL = {"f32": 1e-5, "bf16": 2e-2}

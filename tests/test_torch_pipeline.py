@@ -239,7 +239,8 @@ def test_port_never_imports_jax_or_the_reference():
         assert REPO / "src" / "repro_torch" / mod in files, mod
     files += [REPO / "chip_smoke.py", REPO / "examples" / "quickstart_torch.py",
               REPO / "examples" / "taxi_analytics_torch.py",
-              REPO / "tools" / "flash_planted_faults.py"]
+              REPO / "tools" / "flash_planted_faults.py",
+              REPO / "tools" / "flash_rounding_check.py"]
     assert len(files) > 20
     for path in files:
         for mod in _imports(path):

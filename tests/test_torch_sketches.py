@@ -79,12 +79,21 @@ def _intervals(rng, p, c, past_total=0):
 
 
 # ---------------------------------------------------------- plain kernels --
-@pytest.mark.parametrize("m,depth,width", [(512, 4, 256), (4096, 2, 1024),
-                                           (5000, 6, 128), (2200, 4, 1024),
-                                           (100, 1, 1)])
-def test_cms_plain_matches_reference(m, depth, width):
+CMS_CASES = [(512, 4, 256), (4096, 2, 1024), (5000, 6, 128), (2200, 4, 1024),
+             (100, 1, 1)]
+
+
+# (M, depth, width, every item on one key)
+@pytest.mark.parametrize(
+    "m,depth,width,one_key",
+    [pytest.param(*c, False, id="-".join(map(str, c))) for c in CMS_CASES]
+    + [pytest.param(2200, 4, 1024, True, id="2200-4-1024-one-key"),
+       pytest.param(1000, 6, 65536, False, id="1000-6-65536")])
+def test_cms_plain_matches_reference(m, depth, width, one_key):
     rng = np.random.default_rng(m + depth)
     keys, w = _keys_weights(rng, m)
+    if one_key:
+        keys[:] = keys[0]
     got = tref.cms_update(torch.from_numpy(keys), torch.from_numpy(w),
                           depth, width).numpy()
     ku = jnp.asarray(keys).astype(jnp.uint32)

@@ -3,7 +3,9 @@
 
 For each case — the kernel as it is, then one broken copy per fault —
 ``src/`` and ``chip_smoke.py`` are copied into a temporary directory, the
-fault is written into the copy's ``csrc/flash_attention.cu``, and a child
+fault is written into the copy's ``csrc/flash_attention.cu`` (into the
+bf16 tensor-core kernel that the bf16 checks run, and where the f32
+kernel shares or repeats the faulty line, into it too), and a child
 process runs there: the kernel against its plain version at SmolLM-135M's
 attention shape, then ``chip_smoke.run_prefill`` (SmolLM-135M's bf16
 prefill, pallas against xla, and the f32 B 1 S 512 prefill against the
@@ -24,13 +26,20 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 KERNEL = Path("src/repro_torch/csrc/flash_attention.cu")
-# name → (text of the kernel, its faulty replacement); None: the kernel
-# as it is.
+# name → ((text of the kernel, its faulty replacement), ...); empty: the
+# kernel as it is. The kv-head mapping is one function both kernels call;
+# the causal mask is planted wherever it is stated: the bf16 kernel's
+# scores, its rescoring, and the f32 kernel.
 FAULTS = {
-    "none": None,
-    "kv-head mapping h % Hkv": ("(bh % hq) / (hq / hkv)", "(bh % hq) % hkv"),
-    "causal mask admits one future token": ("k0 + c <= row",
-                                            "k0 + c <= row + 1"),
+    "none": (),
+    "kv-head mapping h % Hkv": (("(bh % hq) / (hq / hkv)",
+                                 "(bh % hq) % hkv"),),
+    "causal mask admits one future token": (
+        ("if (col > row) s[i] = kNegInf;",
+         "if (col > row + 1) s[i] = kNegInf;"),
+        ("kv0 + col_of(owner, i) > q0 + row_of(owner, i)",
+         "kv0 + col_of(owner, i) > q0 + row_of(owner, i) + 1"),
+        ("k0 + c <= row", "k0 + c <= row + 1")),
 }
 CHILD = """
 import sys
@@ -64,13 +73,14 @@ def main() -> int:
             shutil.copytree(ROOT / "src", Path(tmp) / "src",
                             ignore=shutil.ignore_patterns("__pycache__"))
             shutil.copy(ROOT / "chip_smoke.py", tmp)
-            if fault is not None:
-                src = Path(tmp) / KERNEL
-                text = src.read_text()
-                if text.count(fault[0]) != 1:
-                    print(f"{name}: {fault[0]!r} is not once in {KERNEL}")
+            src = Path(tmp) / KERNEL
+            text = src.read_text()
+            for old, new in fault:
+                if text.count(old) != 1:
+                    print(f"{name}: {old!r} is not once in {KERNEL}")
                     return 1
-                src.write_text(text.replace(*fault))
+                text = text.replace(old, new)
+            src.write_text(text)
             print(f"== fault: {name}", flush=True)
             rc |= subprocess.run([sys.executable, "-c", CHILD],
                                  cwd=tmp).returncode
