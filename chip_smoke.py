@@ -13,11 +13,17 @@ Drives ``src/repro_torch`` only (nothing of JAX or of the JAX package):
    strata and above (64 per node), saturated or not, front-packed or
    not, with ``out_capacity`` below the keep count, with exact f32
    priority ties, for the fair, proportional and neyman allocations;
-   ``cms_update`` at the tenants' shapes and the reference test's, with
+   and, with a stratum whose priorities are all equal and one without a
+   valid item, at both sides of every change of the radix digit's width
+   up to 4,096 strata, on caps that the cluster of CTAs does not divide
+   or that are smaller than it, at ``n_eff = 1`` and with neyman above 32
+   strata; ``cms_update`` at the tenants' shapes and the reference test's, with
    no items, one key for every item, depth 6 and widths 1 to 65,536;
    ``quantile_compact`` at every (slots, targets) shape one root window
    of the tenant path launches and at slot counts that are not a
-   multiple of its tile; ``sample_mask`` at the three shapes of the
+   multiple of its tile, and on intervals built as the sketch builds them
+   (``blocked_cumsum``: targets in two slots, a lone ``-0.0``, up to
+   65,536 slots and 640 targets); ``sample_mask`` at the three shapes of the
    ``pallas`` path, with ties and sentinels, and at M = 1, 333, 44,033;
    the ordered ``segment_sum`` against the CPU's ``index_add_`` on sums
    whose value depends on their order; ``flash_attention`` at the
@@ -60,9 +66,10 @@ Drives ``src/repro_torch`` only (nothing of JAX or of the JAX package):
 4. times each kernel at the main path's shapes beside its bound, its
    plain version and (where one exists) one PyTorch call computing the
    same function, as device time from the profiler's CUDA trace (and
-   prints ``cms_update``'s and the bf16 ``flash_attention``'s ratio to
-   that call beside their earlier designs'; ``cms_update`` at (32000, 4,
-   8192), the
+   prints ``cms_update``'s, ``quantile_compact``'s and the bf16
+   ``flash_attention``'s ratio to that call, and ``fused_level_tick``'s
+   and ``fused_select``'s times, beside their earlier designs';
+   ``cms_update`` at (32000, 4, 8192), the
    bf16 kernel at head dim 32 and the f32 kernel at (1, 9, 3, 512, 64)
    too), times
    the WHS epochs with and without tenants and the SRS epochs, profiles
@@ -386,7 +393,61 @@ def check_kernels(dev) -> dict:
         print(f"kernels vs plain: n={n} cap={cap} X={x} budget={budget} "
               f"out_capacity={oc} fill={fill} packed={packed} {alloc} "
               f"ties={ties}: bitwise equal")
+    # The cluster design's edges: X on both sides of every change of the
+    # radix digit's width and 4,096, caps that the cluster does not divide
+    # or that are smaller than it, n_eff = 1 (budget = X), neyman above 32
+    # strata; in each, a stratum whose valid priorities are all equal and
+    # one without a valid item.
+    lib = ft._lib()
+    widths = [ft.digit_bits(x) for x in range(1, ft.MAX_STRATA + 1)]
+    if [lib.fused_level_tick_digit_bits(x)
+            for x in range(1, ft.MAX_STRATA + 1)] != widths:
+        fail("fused_level_tick's digit widths differ from the wrapper's")
+    changes = [x for x in range(2, ft.MAX_STRATA + 1)
+               if widths[x - 1] != widths[x - 2]]
+    edge = [(1, 9000, x, 3000, 2000, "fair", x % 2 == 0)
+            for x in sorted({y for c in changes for y in (c - 1, c)})
+            + [ft.MAX_STRATA]]
+    edge += [(3, 5, 2, 2, 5, "fair", False), (4, 1, 1, 1, 1, "fair", False),
+             (2, 7, 3, 4, 3, "neyman", True),
+             (3, 2203, 4, 4, 64, "fair", True),
+             (2, 4099, 8, 8, 8, "proportional", False),
+             (2, 4096, 100, 900, 900, "neyman", True),
+             (1, 8192, 4096, 5000, 4000, "neyman", False)]
+    for n, cap, x, budget, oc, alloc, ties in edge:
+        cpu = degenerate(level_inputs(rng, n, cap, x, 0.9, False, ties), x)
+        size = torch.tensor(float(budget))
+        plain = ft_ref.fused_level_tick(*cpu, size, x, oc, allocation=alloc)
+        card = ft.fused_level_tick(*(t.to(dev) for t in cpu), size.to(dev),
+                                   x, oc, allocation=alloc)
+        torch.cuda.synchronize()
+        for name, p, k in zip(names, plain, card):
+            if not same_bits(p, k):
+                fail(f"fused_level_tick {name} differs from the plain "
+                     f"version at n={n} cap={cap} X={x} budget={budget} "
+                     f"out_capacity={oc} {alloc} ties={ties} (edge strata)")
+        for res in (plain[5][0], torch.ones(x)):
+            p = ft_ref.fused_select(cpu[3][0], cpu[1][0], cpu[2][0], res, x)
+            k = ft.fused_select(cpu[3][0].to(dev), cpu[1][0].to(dev),
+                                cpu[2][0].to(dev), res.to(dev), x)
+            if not same_bits(p, k):
+                fail(f"fused_select differs from the plain version at "
+                     f"M={cap} X={x} ties={ties} (edge strata)")
+    print(f"fused_level_tick and fused_select vs plain with a stratum of "
+          f"equal priorities and one without a valid item, at (n, cap, X, "
+          f"budget, out_capacity, allocation, ties) = {edge} (digit width "
+          f"changes at X = {changes}): bitwise equal")
     return err
+
+
+def degenerate(arrs, x):
+    """Stratum 0's valid priorities all equal, stratum ``x - 1`` (when
+    ``x > 1``) without a valid item."""
+    vals, strata, valid, u, w_in, c_in = (a.clone() for a in arrs)
+    u[strata == 0] = 0.37
+    if x > 1:
+        valid[strata == x - 1] = False
+    return [vals, strata, valid, u, w_in, c_in]
 
 
 def intervals(rng, p, c):
@@ -401,6 +462,37 @@ def intervals(rng, p, c):
     t = ((np.arange(c) + rng.random()) * cumw[-1] / c).astype(np.float32)
     t[-1] = cumw[-1]
     return [torch.from_numpy(a) for a in (v, prev, cumw, t)]
+
+
+def sketch_intervals(rng, p, c):
+    """Intervals as the sketch builds them: ``cumw`` by ``blocked_cumsum``
+    (the reference's blocked scan, which can fall by an ulp at a block
+    boundary), ``cumw_prev`` shifted by one, weights with zeros. Targets
+    sit in the descents (a target there lies in two slots; at least one
+    must) and on a lone ``-0.0`` value; the rest are equi-spaced, the last
+    at the total (no slot)."""
+    from repro_torch.query.sketches import blocked_cumsum
+
+    v = np.sort(rng.normal(0, 30, p)).astype(np.float32)
+    w = (rng.uniform(0.5, 3.0, p) * rng.choice([1.0, 7.0, 1000.0], p)
+         ).astype(np.float32)
+    w[rng.random(p) < 0.3] = 0.0
+    cumw = blocked_cumsum(torch.from_numpy(w)).numpy()
+    prev = np.concatenate([[0.0], cumw[:-1]]).astype(np.float32)
+    live = np.nonzero(w > 0)[0]
+    z = live[np.argmin(np.abs(v[live]))]
+    v[z] = -0.0
+    dips = cumw[np.nonzero(cumw[1:] < cumw[:-1])[0] + 1][: c // 2]
+    n_eq = c - len(dips) - 2
+    t = np.concatenate([
+        ((np.arange(n_eq) + rng.random()) * cumw[-1] / n_eq),
+        dips, [(prev[z] + cumw[z]) / 2, cumw[-1]]]).astype(np.float32)
+    hits = ((prev[:, None] <= t[None, :]) & (t[None, :] < cumw[:, None])
+            ).sum(0)
+    if not (hits == 2).any() or hits[-2] != 1:
+        fail(f"sketch intervals at P={p} C={c}: no target hits two slots, "
+             f"or the -0.0 slot is not hit alone (hits {np.bincount(hits)})")
+    return [torch.from_numpy(a) for a in (v, prev, cumw, t)], hits
 
 
 def cms_inputs(rng, m):
@@ -480,7 +572,27 @@ def check_sketch_kernels(dev, path_shapes) -> dict:
         err["quantile_compact"] = max(err["quantile_compact"],
                                       max_abs(plain, card))
     print(f"quantile_compact vs plain at (P, C) = {shapes}: bitwise equal")
+    doubles = []
+    for p, c in SKETCH_QC_SHAPES:
+        args, hits = sketch_intervals(rng, p, c)
+        plain = sk_ref.quantile_compact(*args)
+        card = sk.quantile_compact(*(a.to(dev) for a in args))
+        torch.cuda.synchronize()
+        if not same_bits(plain, card):
+            fail(f"quantile_compact differs from the plain version on "
+                 f"blocked-cumsum intervals at P={p} C={c}")
+        err["quantile_compact"] = max(err["quantile_compact"],
+                                      max_abs(plain, card))
+        doubles.append(int((hits == 2).sum()))
+    print(f"quantile_compact vs plain on blocked-cumsum intervals at (P, C) "
+          f"= {SKETCH_QC_SHAPES}: bitwise equal, with {doubles} targets in "
+          f"two slots and a lone -0.0 hit each")
     return err
+
+
+# (P, C) of the blocked-cumsum cases: past the scan's recursion (P > 256),
+# more than one block of targets (C > 256), up to 65,536 slots.
+SKETCH_QC_SHAPES = ((1025, 64), (2456, 128), (5000, 300), (65536, 640))
 
 
 # The three sample_mask launches of one tick of the ``pallas`` path on the
@@ -693,8 +805,16 @@ FLASH_BF16_GRID = tuple((1, 2 * g, 2, s, d) for s in (16, 64, 128, 256, 2048)
 # The earlier designs' kernel time over the library call's at the same
 # shapes (PERF.md's kernel table, NVIDIA H100 80GB HBM3, 700.00 W):
 # cms_update with one thread a bucket against index_add_, flash_attention
-# on the CUDA cores against SDPA at SmolLM-135M's and Qwen3-4B's shapes.
-EARLIER_RATIO = {"cms_update": 17.3, SMOLLM_ATTN: 16.5, QWEN3_ATTN: 24.3}
+# on the CUDA cores against SDPA at SmolLM-135M's and Qwen3-4B's shapes,
+# quantile_compact with one thread a target against searchsorted + gather.
+EARLIER_RATIO = {"cms_update": 17.3, SMOLLM_ATTN: 16.5, QWEN3_ATTN: 24.3,
+                 "quantile_compact": 5.3}
+# The earlier designs' device ms per launch at the main path's shapes (the
+# same table): quantile_compact with one thread a target walking every
+# slot, fused_level_tick (level 0, level 1) and fused_select with one
+# block a node and tau by 31 bisection rounds.
+EARLIER_MS = {"quantile_compact": 0.0477, "fused_level_tick L0": 0.2171,
+              "fused_level_tick L1": 0.0673, "fused_select": 0.0622}
 F32_ATTN = (1, 9, 3, 512, 64)
 # Kernel vs plain version: f32 only the order of the f32 sums and exp's
 # last bit differ; bf16 both round p at the same values (same kv blocks,
@@ -1369,7 +1489,7 @@ def main() -> None:
     root = [t.to(dev) for t in level_inputs(rng, 1, 2200, 4, 1.0, True)]
     size = torch.tensor(1100.0, device=dev)
     root_tick = ft_ref.fused_level_tick(*root, size, 4, 1100)
-    root_c, root_res = root_tick[4][0], root_tick[5][0]
+    root_res = root_tick[5][0]
     zeros = torch.zeros(2200, device=dev)
     sel_args = (root[3][0], root[1][0], root[2][0], root_res, 4)
     ss_args = (zeros, root[1][0], root[2][0], 4)
@@ -1398,20 +1518,10 @@ def main() -> None:
         return (n * cap * 14 + n * oc * 8 + n * x * 8 + 4 + 5 * n * x * 4
                 + n * 4)
 
-    def select_passes(c, res, x):
-        # Passes over a node's buffer in csrc/fused_level_tick.cu, one
-        # operation per slot each, for this data: the counts and the
-        # keep-all copy when every reservoir covers its count; else the
-        # counts, 31 bisection rounds, the strict count, the strict keeps
-        # and one in-order tie walk per stratum.
-        return 2 if bool((res >= c).all()) else 34 + x
-
-    def tick_ops(lvl):
-        out = tick(ft_ref, lvl)
-        n, cap = lvl[0].shape
-        # each node's selection passes, then the compaction pass
-        return sum(cap * (select_passes(out[4][i], out[5][i], 4) + 1)
-                   for i in range(n))
+    # Operations any design of the level tick needs, whatever the data:
+    # per slot a count, a compare with its stratum's tau and a placement
+    # (not the passes of one design over the buffer).
+    SLOT_OPS = 3
 
     ms_l0 = device_ms(lambda: tick(ft, l0), name="fused_level_tick")
     ms_l1 = device_ms(lambda: tick(ft, l1), name="fused_level_tick")
@@ -1456,8 +1566,10 @@ def main() -> None:
             mod.quantile_compact(*args)
 
     def qc_library():
-        # searchsorted + gather: the same function where the intervals
-        # partition [0, W), as the sketch's do.
+        # searchsorted + gather: the same function only where the intervals
+        # partition [0, W), as these do; the sketch's do not always (its
+        # blocked cumsum can fall by an ulp, and a target in the dip lies in
+        # two slots), so the port never calls it.
         for v, _, cumw, tg in qc_cases:
             idx = torch.searchsorted(cumw, tg, right=True)
             torch.where(idx < v.shape[0],
@@ -1493,12 +1605,12 @@ def main() -> None:
             "cms_update": loop_ms(lambda: cms_all(sk)) / n_cms,
             "quantile_compact": loop_ms(lambda: qc_all(sk)) / n_qc}
     (n0, cap0), (n1, cap1), m = l0[0].shape, l1[0].shape, root[0].shape[1]
-    b_l0 = bound(tick_bytes(n0, cap0, 1100, 4), tick_ops(l0))
-    b_l1 = bound(tick_bytes(n1, cap1, 1100, 4), tick_ops(l1))
+    b_l0 = bound(tick_bytes(n0, cap0, 1100, 4), SLOT_OPS * n0 * cap0)
+    b_l1 = bound(tick_bytes(n1, cap1, 1100, 4), SLOT_OPS * n1 * cap1)
     n_masked = int(root[2][0].sum())
     bounds = {"fused_level_tick": ((b_l0[0] + b_l1[0]) / 2, b_l0[1]),
-              "fused_select": bound(m * 10 + 4 * 4,
-                                    m * select_passes(root_c, root_res, 4)),
+              # a count and a compare with tau per slot
+              "fused_select": bound(m * 10 + 4 * 4, 2 * m),
               # count, Σx and Σx² (one multiply, two adds) per masked item
               "stratified_stats": bound(m * 9 + 4 * 12, 4 * n_masked)}
     # cms_update: keys and weights in (8 B per item), the table out; a
@@ -1506,8 +1618,9 @@ def main() -> None:
     cms_b = [bound(root_m * 8 + 4 * width * 4, 3 * 4 * root_m)
              for width in (1024, 256)]
     # quantile_compact: three f32 per slot and the targets in, one f32 per
-    # target out; two compares per (slot, target) — the membership rule.
-    qc_b = [bound(p * 12 + c * 8, 2 * p * c) for p, c in path_shapes]
+    # target out; each slot and each target looked at once, as any design
+    # must (not the TPU formulation's 2·P·C compares).
+    qc_b = [bound(p * 12 + c * 8, p + c) for p, c in path_shapes]
     bounds["cms_update"] = (sum(b[0] for b in cms_b) / n_cms,
                             max(cms_b)[1])
     bounds["quantile_compact"] = (sum(b[0] for b in qc_b) / n_qc,
@@ -1557,9 +1670,20 @@ def main() -> None:
           f"{driver['level pallas'][1]['segment_sum']}; max abs err vs the "
           f"CPU {err['segment_sum']}")
     print(f"fused_level_tick device time per launch: L0 [{n0}, {cap0}] "
-          f"{ms_l0:.4f} ms (bound {b_l0[0] * 1e3:.3f} us, {b_l0[1]}), "
+          f"{ms_l0:.4f} ms (bound {b_l0[0] * 1e3:.3f} us, {b_l0[1]}; "
+          f"earlier design {EARLIER_MS['fused_level_tick L0']}), "
           f"L1 [{n1}, {cap1}] {ms_l1:.4f} ms (bound {b_l1[0] * 1e3:.3f} us, "
-          f"{b_l1[1]})")
+          f"{b_l1[1]}; earlier design {EARLIER_MS['fused_level_tick L1']})")
+    ms_s = t["fused_select"][0]
+    print(f"fused_select device time per launch at the root [{m}] x 4: "
+          f"{ms_s:.4f} ms (bound {bounds['fused_select'][0] * 1e3:.4f} us; "
+          f"earlier design {EARLIER_MS['fused_select']})")
+    ms_q, _, lib_q = t["quantile_compact"]
+    print(f"quantile_compact device time per launch over one root window's "
+          f"{n_qc} launches: {ms_q:.5f} ms, searchsorted + gather "
+          f"{lib_q:.5f} ms: kernel / library {ms_q / lib_q:.2f}x (earlier "
+          f"design: {EARLIER_MS['quantile_compact']} ms, "
+          f"{EARLIER_RATIO['quantile_compact']}x)")
     t["segment_sum"] = (seg_ms[0], seg_plain[0], seg_plain[0])
     bounds["segment_sum"] = seg_b[0]
     # flash_attention at SmolLM-135M's prefill (the main path's launch) and

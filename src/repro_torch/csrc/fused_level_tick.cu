@@ -4,192 +4,400 @@
 //   fused_level_tick (body _kernel)        -> fused_level_tick_kernel
 //   fused_select     (body _select_kernel) -> fused_select_kernel
 //
-// What bounds it on this card: not bytes. One node's buffer (cap items of
-// 13 bytes) is read some 35 times from L1/L2, once per pass: the counts,
-// 31 bisection rounds for the thresholds, the strict count, the tie ranks
-// and the compaction. Each pass ends in a block barrier, and the grid has
-// one block per node (4 blocks at level 0 of the paper's testbed), so the
-// kernel is bound by the latency of those dependent passes on a few SMs,
-// not by device memory or arithmetic.
+// What bounds it on this card: not bytes (13 bytes a slot in, some out)
+// and not arithmetic, but the chain of dependent steps over a node's
+// buffer: the counts, then the allocation, then the threshold tau of each
+// stratum, then the strict keeps and the ties, then the compaction. The
+// reference's TPU kernel finds tau by 31 rounds of bisection, each a pass
+// over the buffer; one block per node walking them (the first port) put
+// level 0 of the paper's testbed on 4 SMs for some 35 barrier-separated
+// passes.
 //
-// What the design does about it: one 1024-thread block per node walks the
-// buffer with a stride, so each pass is short; per-stratum counts are warp
-// ballots and integer shared-memory atomics (exact and deterministic); the
-// TPU kernel's one-hot matmuls become plain indexed loads and stores. The
-// allocation and the Eq. 9 weight update run on one thread with the same
-// f32 operations in the same order as repro_torch/core/sampling.py and
-// repro_torch/core/whs.py; the file is built with -fmad=false so that no
-// multiply-add is contracted. Spreading a node over several blocks, and
-// keeping the buffer in shared memory, are left for a later change.
-//
-// Any number of strata per node up to 4,096: the block's per-stratum state
-// (12 words a stratum) lives in dynamic shared memory sized by X, at most
-// 192 KB; the allocation thread's per-stratum arrays (kScratchArrays words
-// a stratum) live in a per-node global scratch that the wrapper allocates.
-// Per-stratum steps loop over the strata. Counts take one ballot per
-// stratum per 32 items at X <= 32, and one integer shared-memory atomic per
-// matching item above (exact in any order). The arithmetic and its order
-// are the same at every X, so results at X <= 32 keep their bits.
+// What the design does about it:
+// - One thread-block cluster of kMaxCluster CTAs per node (the wrapper's
+//   CLUSTER; tools/fused_tick_phases.py sweeps 1-8), launched with
+//   cudaLaunchKernelEx and a cluster attribute. CTA r takes the r-th
+//   contiguous slice of the node's buffer; each pass over it reads the
+//   slice from L1. Per-stratum counts are warp-aggregated integer
+//   shared-memory atomics, exact in any order; CTAs exchange them through
+//   distributed shared memory (DSMEM) between cluster barriers.
+// - tau by radix select, most significant digit first, on the priority's
+//   31 bits below the sign: each CTA histograms the digit of its eligible
+//   items (valid, stratum in [0, X), sign bit clear, higher digits equal
+//   to the prefix found so far) per stratum and adds its nonzero bins into
+//   every CTA's merged histogram with remote atomics that no one waits
+//   for; after the cluster barrier each CTA picks, per stratum, the digit
+//   that holds the n_eff-th largest. Digits of 8 bits take 4 passes
+//   instead of 31; the two histogram buffers (X * 2^b words each) and five
+//   per-stratum arrays share kSmemWords, so b narrows as X grows
+//   (digit_bits). The result is the n_eff-th largest eligible bit pattern
+//   clamped to 1.0f's, or 0 when fewer than n_eff are eligible: bit for
+//   bit the bisection's lo, the largest pattern in [0, 0x3F800000] with
+//   count(u_bits >= lo) >= n_eff. The special cases stay: N <= 0 gives
+//   tau = 2.0, c <= N gives tau = -1.0.
+// - Strict keeps (u > tau) and ties (u == tau) are counted per CTA and
+//   stratum in one pass. From every CTA's counts each CTA derives the
+//   slack N - strict, its ties' first rank (the ties of earlier CTAs, in
+//   rank order), and the keeps of the CTAs before it, so buffer order,
+//   the tie law and the compacted order stay as the plain version's.
+//   Within a CTA a block scan lists its ties in buffer order and one warp
+//   ranks only them (match_any per 32 ties); a second block scan places
+//   each kept item. No pass over the whole buffer is serial.
+// - The allocation and the Alg. 2 lines 12-20 + Eq. 9 weight update run
+//   on one thread of rank 0 with the same f32 operations in the same
+//   order as repro_torch/core/sampling.py and repro_torch/core/whs.py; the
+//   file is built with -fmad=false so that no multiply-add is contracted.
+//   Up to kRegStrata strata its per-stratum arrays are registers (the
+//   loops unrolled), above they live in a per-node global scratch that
+//   the wrapper allocates (kScratchArrays words a stratum), beside an int
+//   per slot for the tie lists. The neyman moments keep their
+//   buffer-order sums on rank 0, one thread a stratum.
+// What is left (tools/fused_tick_phases.py): seven cluster barriers of
+// about 0.85 us each, the allocation's thread, and per digit a histogram,
+// the remote adds and the choice, each a dependent step of well under a
+// microsecond; the passes over the slots are a small part at the
+// testbed's sizes.
 //
 // Tie law: items with u > tau are kept; items with u == tau (exact f32
 // ties) are kept in buffer order while their rank within the stratum is at
 // most N - (strict keeps). This is the stable lexsort's law, so masks equal
 // the argsort reference bit for bit.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kMaxStrata = 4096;
-constexpr int kBallotStrata = 32;  // counts by warp ballots up to this X
-constexpr int kThreads = 1024;
+constexpr int kMaxCluster = 8;      // CTAs per node at most: the portable size
+constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
-constexpr int kSearchIters = 31;
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kPrioBits = 31;       // a priority's bits below the sign
+constexpr int kTauMax = 0x3F800000; // bits of 1.0f: the bisection's top
+constexpr int kStateArrays = 5;     // per-stratum words beside the histograms
+constexpr int kSmemWords = 53248;   // 208 KB of dynamic shared memory at most
 
 enum Policy { kFair = 0, kProportional = 1, kNeyman = 2 };
 
-// Per-stratum block state: kStratumWords arrays of X words each, carved
-// from dynamic shared memory.
-constexpr int kStratumWords = 12;
+// Bits per radix digit at X strata: 8 where the two histogram buffers fit
+// beside the per-stratum arrays, fewer as X grows (2 at X = 4,096).
+__host__ __device__ inline int digit_bits(int X) {
+  int b = 8;
+  while (b > 2 && (kStateArrays + 2 * (1 << b)) * X > kSmemWords) --b;
+  return b;
+}
+
+// Per-CTA state, carved from dynamic shared memory; the arrays that other
+// CTAs read or add to over DSMEM are marked (remote).
+struct State {
+  int X, B, cs;  // strata, bins a stratum and digit, CTAs in the cluster
+  int* cnt;    // this CTA's valid count per stratum, then its strict
+               // keeps per stratum (remote)
+  int* ties;   // (int)N during the search, then this CTA's ties (remote)
+  int* pre;    // tau's bits found so far, then tau (as float bits)
+  int* kk;     // the rank still to find (0: search over), then the slack
+               // (as float bits)
+  int* carry;  // (int)c during the search, then the ties of this stratum
+               // in earlier CTAs
+  int* hist[2];  // digit histograms, X * B words each (remote)
+};
+
+// The two histograms, then the five per-stratum arrays.
+__device__ __forceinline__ State carve(int X, int b) {
+  extern __shared__ int dyn[];
+  const int B = 1 << b;
+  const int cs = (int)cg::this_cluster().num_blocks();
+  int* rest = dyn + 2 * X * B;
+  return State{X,        B,         cs,       rest,
+               rest + X, rest + 2 * X, rest + 3 * X, rest + 4 * X,
+               {dyn, dyn + X * B}};
+}
 
 struct Fixed {
-  int wtot[kWarps];
-  int n_valid, last_valid, saturated;
+  int wsum[kWarps + 1];  // block reductions and scans
+  int nv, last;          // this CTA's valid items, last valid position (remote)
+  int strict_total;      // this CTA's strict keeps, any stratum (remote)
+  int saturated;         // rank 0: every reservoir covers its count (remote)
+  int sum_before, sum_all, max_all;  // gather_scalar's results
 };
 
-struct Shared {
-  int *cnt;                // scratch per-stratum counter
-  int *lo, *hi, *mid, *n_eff, *n_int, *c_int;
-  float *c, *res, *tau, *slack, *stds;
-  int *wtot;
-  int &n_valid, &last_valid, &saturated;
-};
-
-__device__ __forceinline__ Shared carve(Fixed& f, int X) {
-  extern __shared__ int dyn[];
-  float* fl = reinterpret_cast<float*>(dyn);
-  return Shared{dyn,          dyn + X,      dyn + 2 * X,  dyn + 3 * X,
-                dyn + 4 * X,  dyn + 5 * X,  dyn + 6 * X,  fl + 7 * X,
-                fl + 8 * X,   fl + 9 * X,   fl + 10 * X,  fl + 11 * X,
-                f.wtot,       f.n_valid,    f.last_valid, f.saturated};
-}
 
 // The allocation thread's per-stratum arrays, in the node's slice of the
 // global scratch (kScratchArrays * X floats).
-constexpr int kScratchArrays = 14;
+constexpr int kScratchArrays = 16;
 enum ScratchArray {
   kAlloc = 0, kActive, kReserve, kRemCounts, kOne, kPre, kQuota, kBase,
-  kFrac, kScore, kS, kUsed, kCapped, kHead
+  kFrac, kScore, kS, kUsed, kCapped, kHead, kCounts, kStds
 };
+
+// Phase timestamps for tools/fused_tick_phases.py: built with
+// -DREPRO_PHASE_PROBE, thread 0 of each CTA writes %globaltimer (ns, the
+// same clock on every SM) at each phase's end to the buffer that
+// fused_level_tick_set_probe names, after a block barrier (so the probe
+// build runs a little longer than the kernel it measures).
+constexpr int kProbeSlots = 32;
+constexpr int kProbePasses = 6;  // passes with probes: slots 7 .. 24
+#ifdef REPRO_PHASE_PROBE
+__device__ long long* g_probe;
+__device__ __forceinline__ long long global_ns() {
+  long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+#define PROBE(slot)                                                     \
+  do {                                                                  \
+    __syncthreads();                                                    \
+    if (threadIdx.x == 0 && g_probe != nullptr)                         \
+      g_probe[blockIdx.x * kProbeSlots + (slot)] = global_ns();         \
+  } while (0)
+#else
+#define PROBE(slot) \
+  do {              \
+  } while (0)
+#endif
 
 __device__ __forceinline__ int clamp_stratum(int s, int X) {
   return s < 0 ? 0 : (s >= X ? X - 1 : s);
 }
 
-// Adds to cnt[s], for every stratum s < X, the number of items k < m with
-// pred(k) and strata[k] == s. Up to 32 strata: one ballot per stratum per
-// 32 items, one shared-memory atomic per warp per stratum. Above: one
-// shared-memory atomic per matching item.
-template <class Pred>
-__device__ void count_by_stratum(const int* strata, int m, int X, Pred pred,
-                                 int* cnt) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (X > kBallotStrata) {
-    for (int k = threadIdx.x; k < m; k += kThreads) {
-      const int s = strata[k];
-      if (s >= 0 && s < X && pred(k)) atomicAdd(&cnt[s], 1);
-    }
-    return;
-  }
-  int acc = 0;
-  for (int base = warp * 32; base < m; base += kThreads) {
-    const int k = base + lane;
-    bool p = false;
-    int s = -1;
-    if (k < m) {
-      p = pred(k);
-      s = strata[k];
-    }
-    for (int x = 0; x < X; ++x) {
-      const unsigned b = __ballot_sync(kFull, p && s == x);
-      if (lane == x) acc += __popc(b);
-    }
-  }
-  if (lane < X && acc != 0) atomicAdd(&cnt[lane], acc);
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive;\n" ::: "memory");
 }
 
-// Counts c, the number of valid items and the last valid position.
-__device__ void count_phase(const int* strata, const uint8_t* valid, int m,
-                            int X, Shared& sm) {
-  const int tid = threadIdx.x;
-  for (int s = tid; s < X; s += kThreads) sm.cnt[s] = 0;
-  if (tid == 0) {
-    sm.n_valid = 0;
-    sm.last_valid = -1;
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_sync() {
+  cluster_arrive();
+  cluster_wait();
+}
+
+template <class T>
+__device__ __forceinline__ T* remote(T* local, int rank) {
+  return cg::this_cluster().map_shared_rank(local, rank);
+}
+
+// cnt[key] += (lanes of the warp with pred and this key); all 32 lanes call.
+__device__ __forceinline__ void add_by_key(int* cnt, int key, bool pred) {
+  const unsigned m = __match_any_sync(kFull, pred ? key : -1);
+  if (pred && (threadIdx.x & 31) == __ffs(m) - 1) atomicAdd(&cnt[key], __popc(m));
+}
+
+__device__ __forceinline__ int warp_sum(int v) {
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(kFull, v, off);
+  return v;
+}
+
+// The block's sum of v, in every thread.
+__device__ int block_sum(int v, Fixed& f) {
+  v = warp_sum(v);
+  if ((threadIdx.x & 31) == 0) f.wsum[threadIdx.x >> 5] = v;
+  __syncthreads();
+  int t = 0;
+  for (int w = 0; w < kWarps; ++w) t += f.wsum[w];
+  __syncthreads();
+  return t;
+}
+
+// The sum of v over the threads before this one; the block's sum in total.
+__device__ int block_exclusive_scan(int v, Fixed& f, int& total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int incl = v;
+  for (int off = 1; off < 32; off <<= 1) {
+    const int t = __shfl_up_sync(kFull, incl, off);
+    if (lane >= off) incl += t;
+  }
+  if (lane == 31) f.wsum[warp] = incl;
+  __syncthreads();
+  if (warp == 0) {
+    const int w = lane < kWarps ? f.wsum[lane] : 0;
+    int wi = w;
+    for (int off = 1; off < 32; off <<= 1) {
+      const int t = __shfl_up_sync(kFull, wi, off);
+      if (lane >= off) wi += t;
+    }
+    if (lane < kWarps) f.wsum[lane] = wi - w;
+    if (lane == kWarps - 1) f.wsum[kWarps] = wi;
   }
   __syncthreads();
-  count_by_stratum(strata, m, X, [&](int k) { return valid[k] != 0; }, sm.cnt);
+  const int out = f.wsum[warp] + incl - v;
+  total = f.wsum[kWarps];
+  __syncthreads();
+  return out;
+}
+
+// The largest r >= 0 with (float)r <= slack (0 when none is >= 1): ranks
+// 1..R of a stratum's ties are kept. Exact above 2^24 too, where (float)r
+// rounds.
+__device__ long long last_rank(float slack) {
+  if (!(slack >= 1.f)) return 0;
+  if (slack >= 2147483648.f) return 1LL << 40;
+  long long r = (long long)floorf(slack);
+  while ((float)(r + 1) <= slack) ++r;
+  return r;
+}
+
+// One lane a CTA reads field a (and b) of every CTA's Fixed; the last
+// warp (beside the threads of the first strata) leaves the sum of a over
+// the CTAs before this one and over all, and the largest b, in f. The
+// caller reads them after a block barrier.
+__device__ void gather_scalar(Fixed& f, int* a, int* b, int rank, int cs) {
+  const int lane = threadIdx.x & 31;
+  if (threadIdx.x < kThreads - 32) return;
+  const int va = lane < cs ? *remote(a, lane) : 0;
+  const int vb = (b != nullptr && lane < cs) ? *remote(b, lane) : -1;
+  int before = lane < rank ? va : 0, all = va, mx = vb;
+  for (int off = 16; off > 0; off >>= 1) {
+    before += __shfl_xor_sync(kFull, before, off);
+    all += __shfl_xor_sync(kFull, all, off);
+    mx = max(mx, __shfl_xor_sync(kFull, mx, off));
+  }
+  if (lane == 0) {
+    f.sum_before = before;
+    f.sum_all = all;
+    f.max_all = mx;
+  }
+}
+
+// Phase 1 over the CTA's slice [begin, end): per-stratum valid counts,
+// the valid items and the last valid position, and the histogram of the
+// first digit of every eligible item (in hist[1]; after the first cluster
+// barrier the caller adds it into every CTA's hist[0] with push_bins).
+// Zeroes the state first.
+__device__ void count_phase(const int* __restrict__ strata,
+                            const uint8_t* __restrict__ valid,
+                            const float* __restrict__ prio, int begin,
+                            int end, int b, State& st, Fixed& f) {
+  const int tid = threadIdx.x, X = st.X;
+  for (int i = tid; i < X; i += kThreads) st.cnt[i] = 0;
+  for (int i = tid; i < 2 * X * st.B; i += kThreads) st.hist[0][i] = 0;
+  if (tid == 0) {
+    f.nv = 0;
+    f.last = -1;
+  }
+  __syncthreads();
+  const int lo0 = kPrioBits - b;
   int nv = 0, last = -1;
-  for (int k = tid; k < m; k += kThreads) {
-    if (valid[k]) {
+  for (int base = begin; base < end; base += kThreads) {
+    const int k = base + tid;
+    bool v = false;
+    int s = -1, bits = -1;
+    if (k < end) {
+      v = valid[k] != 0;
+      s = strata[k];
+      bits = __float_as_int(prio[k]);
+    }
+    const bool inr = v && s >= 0 && s < X;
+    add_by_key(st.cnt, s, inr);
+    if (v) {
       ++nv;
       last = k;
     }
+    if (inr && bits >= 0) atomicAdd(&st.hist[1][s * st.B + (bits >> lo0)], 1);
   }
-  for (int off = 16; off > 0; off >>= 1) {
-    nv += __shfl_down_sync(kFull, nv, off);
-    last = max(last, __shfl_down_sync(kFull, last, off));
-  }
+  nv = warp_sum(nv);
+  for (int off = 16; off > 0; off >>= 1)
+    last = max(last, __shfl_xor_sync(kFull, last, off));
   if ((tid & 31) == 0) {
-    atomicAdd(&sm.n_valid, nv);
-    atomicMax(&sm.last_valid, last);
+    atomicAdd(&f.nv, nv);
+    atomicMax(&f.last, last);
   }
   __syncthreads();
-  for (int s = tid; s < X; s += kThreads) sm.c[s] = (float)sm.cnt[s];
+}
+
+// After the first cluster barrier: the node's valid count per stratum,
+// kept as (int)(float)count in st.carry (and as a float in counts, if
+// given); the node's valid items, those of earlier CTAs and the last valid
+// position.
+__device__ void gather_counts(State& st, Fixed& f, int rank, float* counts,
+                              int& nv_before, int& nv_total,
+                              int& last_valid) {
+  for (int s = threadIdx.x; s < st.X; s += kThreads) {
+    int total = 0;
+#pragma unroll
+    for (int r = 0; r < kMaxCluster; ++r)
+      if (r < st.cs) total += remote(st.cnt, r)[s];
+    const float c = (float)total;
+    st.carry[s] = (int)c;
+    if (counts != nullptr) counts[s] = c;
+  }
+  gather_scalar(f, &f.nv, &f.last, rank, st.cs);
+  __syncthreads();
+  nv_before = f.sum_before;
+  nv_total = f.sum_all;
+  last_valid = f.max_all;
   __syncthreads();
 }
 
 // ---- allocate_reservoirs (repro_torch/core/sampling.py), one thread ------
-__device__ void exclusive_prefix(const float* x, float* out, int X) {
+// The allocation's per-stratum arrays: registers when N > 0 (at most N
+// strata; loops run to N, skip i >= X and unroll, so every index is a
+// constant), else the scratch (N = 0, any X). The f32 operations and their
+// order are the same either way.
+constexpr int kRegStrata = 4;
+template <int N>
+struct Arrays {
+  float v[kScratchArrays][N];
+  __device__ __forceinline__ float* operator[](int k) { return v[k]; }
+};
+template <>
+struct Arrays<0> {
+  float* base;
+  int X;
+  __device__ __forceinline__ float* operator[](int k) { return base + k * X; }
+};
+
+#define FOR_STRATA(i, from)                                           \
+  _Pragma("unroll") for (int i = (from); i < (N > 0 ? N : X); ++i) \
+    if (N == 0 || i < X)
+
+template <int N>
+__device__ __forceinline__ void exclusive_prefix(const float* x, float* out,
+                                                 int X) {
   float acc = 0.f;
-  for (int i = 0; i < X; ++i) {
+  FOR_STRATA(i, 0) {
     out[i] = acc;
     acc = acc + x[i];
   }
 }
 
-__device__ float seq_sum(const float* x, int X) {
+template <int N>
+__device__ __forceinline__ float seq_sum(const float* x, int X) {
   float acc = x[0];
-  for (int i = 1; i < X; ++i) acc = acc + x[i];
+  FOR_STRATA(i, 1) acc = acc + x[i];
   return acc;
 }
 
-__device__ void settle(float* alloc, const float* counts, const float* active,
-                       float budget, int X, float* scratch) {
-  float* head = scratch + kHead * X;
-  float* pre = scratch + kPre * X;
+template <int N>
+__device__ __forceinline__ void settle(Arrays<N>& a, float budget, int X) {
+  float *alloc = a[kAlloc], *counts = a[kCounts], *active = a[kActive];
+  float *head = a[kHead], *pre = a[kPre];
   float sum = 0.f;
-  for (int i = 0; i < X; ++i) {
+  FOR_STRATA(i, 0) {
     alloc[i] = active[i] != 0.f ? fminf(alloc[i], counts[i]) : 0.f;
     sum = sum + alloc[i];
   }
-  for (int i = 0; i < X; ++i)
-    head[i] = active[i] != 0.f ? counts[i] - alloc[i] : 0.f;
+  FOR_STRATA(i, 0) head[i] = active[i] != 0.f ? counts[i] - alloc[i] : 0.f;
   const float leftover = budget - sum;
-  exclusive_prefix(head, pre, X);
-  for (int i = 0; i < X; ++i)
+  exclusive_prefix<N>(head, pre, X);
+  FOR_STRATA(i, 0)
     alloc[i] = alloc[i] + fminf(fmaxf(leftover - pre[i], 0.f), head[i]);
 }
 
-// Writes the allocation to scratch[kAlloc * X ...].
-__device__ void allocate(float size, const float* counts, const float* stds,
-                         int policy, int X, float* scratch) {
-  float* alloc = scratch + kAlloc * X;
-  float* active = scratch + kActive * X;  // 1.0 where counts > 0, else 0.0
+// The allocation of size over the counts (and stds) in a[kCounts]
+// (a[kStds]), into a[kAlloc].
+template <int N>
+__device__ __forceinline__ void allocate(float size, int policy, int X,
+                                         Arrays<N>& a) {
+  float *alloc = a[kAlloc], *counts = a[kCounts], *stds = a[kStds];
+  float* active = a[kActive];  // 1.0 where counts > 0, else 0.0
   float total_c = 0.f, n_active = 0.f;
-  for (int i = 0; i < X; ++i) {
+  FOR_STRATA(i, 0) {
     active[i] = counts[i] > 0.f ? 1.f : 0.f;
     n_active = n_active + (active[i] != 0.f ? 1.f : 0.f);
     total_c = total_c + counts[i];
@@ -197,40 +405,37 @@ __device__ void allocate(float size, const float* counts, const float* stds,
   n_active = fmaxf(n_active, 1.f);
   const float budget = fminf(size, total_c);
 
-  float* reserve = scratch + kReserve * X;
-  float* rem_counts = scratch + kRemCounts * X;
+  float* reserve = a[kReserve];
+  float* rem_counts = a[kRemCounts];
   float rem_budget = 0.f;
   if (policy != kFair) {
-    float* one = scratch + kOne * X;
-    float* pre = scratch + kPre * X;
+    float *one = a[kOne], *pre = a[kPre];
     float sum_res = 0.f;
-    for (int i = 0; i < X; ++i) one[i] = fminf(counts[i], 1.f);
-    exclusive_prefix(one, pre, X);
-    for (int i = 0; i < X; ++i) {
+    FOR_STRATA(i, 0) one[i] = fminf(counts[i], 1.f);
+    exclusive_prefix<N>(one, pre, X);
+    FOR_STRATA(i, 0) {
       reserve[i] = fminf(fmaxf(budget - pre[i], 0.f), one[i]);
       sum_res = sum_res + reserve[i];
     }
     rem_budget = budget - sum_res;
-    for (int i = 0; i < X; ++i) rem_counts[i] = counts[i] - reserve[i];
+    FOR_STRATA(i, 0) rem_counts[i] = counts[i] - reserve[i];
   }
 
   if (policy == kProportional) {
-    float* quota = scratch + kQuota * X;
-    float* base = scratch + kBase * X;
-    float* frac = scratch + kFrac * X;
+    float *quota = a[kQuota], *base = a[kBase], *frac = a[kFrac];
     float total = 0.f, sum_base = 0.f;
-    for (int i = 0; i < X; ++i) total = total + rem_counts[i];
+    FOR_STRATA(i, 0) total = total + rem_counts[i];
     total = fmaxf(total, 1.f);
-    for (int i = 0; i < X; ++i) {
+    FOR_STRATA(i, 0) {
       quota[i] = rem_budget * rem_counts[i] / total;
       base[i] = floorf(quota[i]);
       frac[i] = rem_counts[i] > 0.f ? quota[i] - base[i] : -1.f;
       sum_base = sum_base + base[i];
     }
     const float n_extra = rintf(rem_budget - sum_base);
-    for (int i = 0; i < X; ++i) {
+    FOR_STRATA(i, 0) {
       float rank = 0.f;
-      for (int j = 0; j < X; ++j) {
+      FOR_STRATA(j, 0) {
         const bool ahead = frac[j] > frac[i] || (frac[j] == frac[i] && j < i);
         rank = rank + (ahead ? 1.f : 0.f);
       }
@@ -238,53 +443,79 @@ __device__ void allocate(float size, const float* counts, const float* stds,
       alloc[i] = reserve[i] + base[i] + extra;
     }
   } else if (policy == kNeyman) {
-    float* score = scratch + kScore * X;
-    float* s = scratch + kS * X;
-    for (int i = 0; i < X; ++i)
+    float *score = a[kScore], *sv = a[kS];
+    FOR_STRATA(i, 0)
       score[i] = active[i] != 0.f ? counts[i] * fmaxf(stds[i], 1e-6f) : 0.f;
-    const float s_tot0 = fmaxf(seq_sum(score, X), 1e-30f);
-    for (int i = 0; i < X; ++i)
+    const float s_tot0 = fmaxf(seq_sum<N>(score, X), 1e-30f);
+    FOR_STRATA(i, 0)
       alloc[i] = fminf(reserve[i] + floorf(rem_budget * score[i] / s_tot0),
                        counts[i]);
     for (int it = 0; it < 4; ++it) {
       float sum_alloc = 0.f;
-      for (int i = 0; i < X; ++i) {
-        s[i] = (active[i] != 0.f && alloc[i] < counts[i]) ? score[i] : 0.f;
+      FOR_STRATA(i, 0) {
+        sv[i] = (active[i] != 0.f && alloc[i] < counts[i]) ? score[i] : 0.f;
         sum_alloc = sum_alloc + alloc[i];
       }
-      const float s_tot = fmaxf(seq_sum(s, X), 1e-30f);
+      const float s_tot = fmaxf(seq_sum<N>(sv, X), 1e-30f);
       const float spare = budget - sum_alloc;
-      for (int i = 0; i < X; ++i)
-        alloc[i] = fminf(alloc[i] + floorf(spare * s[i] / s_tot), counts[i]);
+      FOR_STRATA(i, 0)
+        alloc[i] = fminf(alloc[i] + floorf(spare * sv[i] / s_tot), counts[i]);
     }
   } else {
-    for (int i = 0; i < X; ++i)
-      alloc[i] = active[i] != 0.f ? floorf(budget / n_active) : 0.f;
-    float* used = scratch + kUsed * X;
-    float* capped = scratch + kCapped * X;  // 1.0 or 0.0
+    FOR_STRATA(i, 0) alloc[i] = active[i] != 0.f ? floorf(budget / n_active)
+                                                 : 0.f;
+    float *used = a[kUsed], *capped = a[kCapped];  // capped: 1.0 or 0.0
     for (int it = 0; it < 4; ++it) {
       float surplus = 0.f, n_capped = 0.f;
-      for (int i = 0; i < X; ++i) {
+      FOR_STRATA(i, 0) {
         used[i] = fminf(alloc[i], counts[i]);
         surplus = surplus + (alloc[i] - used[i]);
         capped[i] = (active[i] != 0.f && counts[i] > alloc[i]) ? 1.f : 0.f;
         n_capped = n_capped + capped[i];
       }
       n_capped = fmaxf(n_capped, 1.f);
-      for (int i = 0; i < X; ++i) {
+      FOR_STRATA(i, 0) {
         const float bump = capped[i] != 0.f ? floorf(surplus / n_capped) : 0.f;
         alloc[i] = active[i] != 0.f ? used[i] + bump : 0.f;
       }
     }
   }
-  settle(alloc, counts, active, budget, X, scratch);
+  settle<N>(a, budget, X);
 }
 
-// Per-stratum value standard deviations over valid items (neyman only):
-// one thread per stratum adds the values in buffer order, the order of
-// the plain version's scatter-add, so the result is bitwise the same.
+// Thread 0 of rank 0: the allocation over the node's counts (and stds) in
+// the scratch, into scratch[kAlloc * X ...]; returns whether every
+// reservoir covers its count.
+__device__ bool allocate_node(float size, int policy, int X, float* scratch) {
+  if (X <= kRegStrata) {
+    Arrays<kRegStrata> a;
+    constexpr int N = kRegStrata;
+    FOR_STRATA(i, 0) {
+      a[kCounts][i] = scratch[kCounts * X + i];
+      a[kStds][i] = scratch[kStds * X + i];
+    }
+    allocate<N>(size, policy, X, a);
+    bool sat = true;
+    FOR_STRATA(i, 0) {
+      scratch[kAlloc * X + i] = a[kAlloc][i];
+      sat &= a[kAlloc][i] >= a[kCounts][i];
+    }
+    return sat;
+  }
+  Arrays<0> a{scratch, X};
+  allocate<0>(size, policy, X, a);
+  bool sat = true;
+  for (int i = 0; i < X; ++i) sat &= a[kAlloc][i] >= a[kCounts][i];
+  return sat;
+}
+
+// Per-stratum value standard deviations over the node's valid items
+// (neyman only): one thread per stratum adds the values in buffer order,
+// the order of the plain version's scatter-add, so the result is bitwise
+// the same.
 __device__ void stds_phase(const float* values, const int* strata,
-                           const uint8_t* valid, int m, int X, Shared& sm) {
+                           const uint8_t* valid, int m, int X,
+                           const float* counts, float* stds) {
   for (int s = threadIdx.x; s < X; s += kThreads) {
     float s1 = 0.f, s2 = 0.f;
     for (int k = 0; k < m; ++k) {
@@ -294,89 +525,315 @@ __device__ void stds_phase(const float* values, const int* strata,
         s2 = s2 + v * v;
       }
     }
-    const float safe = fmaxf(sm.c[s], 1.f);
+    const float safe = fmaxf(counts[s], 1.f);
     const float mean = s1 / safe;
     // The reference's compiled code contracts this into one FMA.
     const float var = fmaxf(__fmaf_rn(-mean, mean, s2 / safe), 0.f);
-    sm.stds[s] = sqrtf(var);
+    stds[s] = sqrtf(var);
   }
-  __syncthreads();
 }
 
-// keep[k] for the whole buffer: valid when saturated, else the tau search
-// and the strict/tie decomposition. Expects sm.c, sm.res and sm.saturated.
-__device__ void select_phase(const float* prio, const int* strata,
-                             const uint8_t* valid, int m, int X, Shared& sm,
-                             uint8_t* keep) {
+// Adds this CTA's histogram h (w = 1 << wb bins a stratum, at stride B;
+// the strata still searching, or all) into m of every CTA of the cluster,
+// and zeroes what it added. The adds are remote atomics whose result no
+// one waits for; the next cluster barrier makes them visible.
+__device__ void push_bins(State& st, int* h, int* m, int w, int wb,
+                          bool all) {
+  for (int i = threadIdx.x; i < st.X * w; i += kThreads) {
+    const int s = i >> wb, at = s * st.B + (i & (w - 1));
+    if (!all && st.kk[s] == 0) continue;
+    const int v = h[at];
+    if (v == 0) continue;
+    h[at] = 0;
+#pragma unroll
+    for (int r = 0; r < kMaxCluster; ++r)
+      if (r < st.cs) atomicAdd(remote(m, r) + at, v);
+  }
+}
+
+// Picks, for every stratum still searching, the digit of this pass from
+// the cluster's histogram h (w bins a stratum, at bit lo): the digit whose
+// bin holds the kk-th largest eligible item. On the first pass a stratum
+// with fewer than kk eligible items stops with prefix 0. Zeroes the bins
+// it read.
+__device__ void choose_digits(State& st, int* h, int w, int lo, bool first) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  if (sm.saturated) {
+  if (w >= 32) {  // a warp per stratum, w / 32 bins a lane
+    const int q = w >> 5;
+    for (int s = warp; s < st.X; s += kWarps) {
+      const int k = st.kk[s];
+      if (k == 0) continue;
+      int* hb = h + s * st.B + lane * q;
+      int v[8];
+      int sum = 0;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        v[i] = i < q ? hb[i] : 0;
+        sum += v[i];
+        if (i < q) hb[i] = 0;
+      }
+      int incl = sum;  // this lane's bins and those of the lanes above
+      for (int off = 1; off < 32; off <<= 1) {
+        const int t = __shfl_down_sync(kFull, incl, off);
+        if (lane + off < 32) incl += t;
+      }
+      const int above = incl - sum;
+      const int total = __shfl_sync(kFull, incl, 0);
+      if (first && total < k) {
+        if (lane == 0) st.kk[s] = 0;
+        continue;
+      }
+      if (above < k && k <= above + sum) {
+        int a = above, d = 0;
+#pragma unroll
+        for (int i = 7; i > 0; --i) {
+          if (i < q && d == 0) {
+            if (a + v[i] >= k) d = i;
+            else a += v[i];
+          }
+        }
+        st.pre[s] |= (lane * q + d) << lo;
+        st.kk[s] = k - a;
+      }
+    }
+  } else {  // a thread per stratum
+    for (int s = tid; s < st.X; s += kThreads) {
+      const int k = st.kk[s];
+      if (k == 0) continue;
+      int* hb = h + s * st.B;
+      int total = 0;
+      for (int d = 0; d < w; ++d) total += hb[d];
+      if (first && total < k) {
+        st.kk[s] = 0;
+      } else {
+        int a = 0, d = w - 1;
+        for (; d > 0; --d) {
+          if (a + hb[d] >= k) break;
+          a += hb[d];
+        }
+        st.pre[s] |= d << lo;
+        st.kk[s] = k - a;
+      }
+      for (int d = 0; d < w; ++d) hb[d] = 0;
+    }
+  }
+}
+
+// One warp ranks a CTA's ties in buffer order (list holds their positions,
+// in order): rank = the stratum's ties in earlier CTAs and earlier in the
+// list, plus one; kept while (float)rank <= slack.
+__device__ void rank_ties(const int* list, int n, const int* strata,
+                          State& st, uint8_t* keep) {
+  const int lane = threadIdx.x & 31;
+  for (int base = 0; base < n; base += 32) {
+    const int e = base + lane;
+    const bool in = e < n;
+    const int pos = in ? list[e] : 0;
+    const int s = in ? strata[pos] : -1;
+    const unsigned m = __match_any_sync(kFull, s);
+    if (in) {
+      const int rank = st.carry[s] + __popc(m & ((2u << lane) - 1u));
+      keep[pos] = (float)rank <= __int_as_float(st.kk[s]) ? 1 : 0;
+    }
+    __syncwarp();
+    if (in && lane == 31 - __clz(m)) st.carry[s] += __popc(m);
+    __syncwarp();
+  }
+}
+
+// keep[k] over the CTA's slice, after gather_counts: valid when
+// saturated, else tau by radix select and the strict/tie decomposition.
+// Returns the keeps of the CTAs before this one and of the node, and
+// arrives at the cluster barrier after its last DSMEM read (the caller
+// waits on it before it exits). res: the node's reservoirs (global).
+__device__ void select_phase(const float* __restrict__ prio,
+                             const int* __restrict__ strata,
+                             const uint8_t* __restrict__ valid,
+                             const float* res, int begin, int end, int rank,
+                             int b, bool saturated, int nv_before,
+                             int nv_total, State& st, Fixed& f, int* list,
+                             uint8_t* keep, int& kept_before,
+                             int& kept_total) {
+  const int tid = threadIdx.x, X = st.X;
+  if (saturated) {
     // N_i >= c_i everywhere: tau sinks below every priority and ties keep
     // all, so the mask is exactly ``valid``.
-    for (int k = tid; k < m; k += kThreads) keep[k] = valid[k] ? 1 : 0;
+    cluster_arrive();
+    for (int k = begin + tid; k < end; k += kThreads) keep[k] = valid[k] ? 1 : 0;
+    kept_before = nv_before;
+    kept_total = nv_total;
     __syncthreads();
     return;
   }
   for (int s = tid; s < X; s += kThreads) {
-    const int n = (int)sm.res[s], c = (int)sm.c[s];
-    sm.n_int[s] = n;
-    sm.c_int[s] = c;
-    sm.n_eff[s] = max(min(n, c), 1);
-    sm.lo[s] = 0;               // F(0) = c >= n_eff
-    sm.hi[s] = 0x3F800001;      // above the bits of every u < 1
+    const int n = (int)res[s], c = st.carry[s];
+    st.ties[s] = n;
+    st.kk[s] = (n <= 0 || c <= n) ? 0 : n;  // n_eff = n when 1 <= n < c
+    st.pre[s] = 0;
   }
-  const int* u_bits = reinterpret_cast<const int*>(prio);
-  for (int it = 0; it < kSearchIters; ++it) {
-    for (int s = tid; s < X; s += kThreads) {
-      sm.mid[s] = (sm.lo[s] + sm.hi[s]) / 2;
-      sm.cnt[s] = 0;
+  __syncthreads();
+  // Pass p chooses the digit at bits [lo, hi) from the cluster's histogram
+  // in hist[p % 2]; this CTA builds the next one in hist[p % 2] too, once
+  // read, and adds it into every CTA's hist[(p + 1) % 2] (zeroed when its
+  // last content was pushed out, before the barrier that precedes these
+  // adds). Pass 0's histogram was pushed by the caller.
+  const int np = (kPrioBits + b - 1) / b;
+  for (int p = 0; p < np; ++p) {
+    const int hi = kPrioBits - p * b, lo = max(0, hi - b), w = 1 << (hi - lo);
+    int* merged = st.hist[p & 1];
+    if (p > 0) {
+      push_bins(st, st.hist[(p & 1) ^ 1], merged, w, hi - lo, false);
+      if (p < kProbePasses) PROBE(7 + 3 * p);  // pushed
+      cluster_sync();  // every CTA's histogram of this digit is in
+    }
+    choose_digits(st, merged, w, lo, p == 0);
+    __syncthreads();
+    if (p < kProbePasses) PROBE(8 + 3 * p);  // chosen
+    if (p + 1 == np) break;
+    // the next digit's histogram, into merged (its active bins are zero)
+    const int hi2 = lo, lo2 = max(0, hi2 - b), mask = (1 << (hi2 - lo2)) - 1;
+    for (int k = begin + tid; k < end; k += kThreads) {
+      const bool v = valid[k] != 0;
+      const int s = strata[k], bits = __float_as_int(prio[k]);
+      if (!v || s < 0 || s >= X || bits < 0 || st.kk[s] == 0 ||
+          (bits >> hi2) != (st.pre[s] >> hi2))
+        continue;
+      atomicAdd(&merged[s * st.B + ((bits >> lo2) & mask)], 1);
     }
     __syncthreads();
-    count_by_stratum(
-        strata, m, X,
-        [&](int k) {
-          return valid[k] && u_bits[k] >= sm.mid[clamp_stratum(strata[k], X)];
-        },
-        sm.cnt);
-    __syncthreads();
-    for (int s = tid; s < X; s += kThreads) {
-      if (sm.cnt[s] >= sm.n_eff[s]) sm.lo[s] = sm.mid[s];
-      else sm.hi[s] = sm.mid[s];
-    }
+    if (p < kProbePasses) PROBE(9 + 3 * p);  // next digit's histogram
   }
   for (int s = tid; s < X; s += kThreads) {
-    const int n = sm.n_int[s];
-    sm.tau[s] = n <= 0 ? 2.0f
-                       : (sm.c_int[s] <= n ? -1.0f : __int_as_float(sm.lo[s]));
-    sm.cnt[s] = 0;
+    const int n = st.ties[s], c = st.carry[s];
+    const float tau = n <= 0 ? 2.0f
+                             : (c <= n ? -1.0f
+                                       : __int_as_float(min(st.pre[s], kTauMax)));
+    st.pre[s] = __float_as_int(tau);
+    st.ties[s] = 0;
+    st.cnt[s] = 0;
   }
   __syncthreads();
-  auto strict = [&](int k) {
-    return valid[k] && prio[k] > sm.tau[clamp_stratum(strata[k], X)];
-  };
-  count_by_stratum(strata, m, X, strict, sm.cnt);
-  for (int k = tid; k < m; k += kThreads) keep[k] = strict(k) ? 1 : 0;
-  __syncthreads();
-  for (int s = tid; s < X; s += kThreads)
-    sm.slack[s] = sm.res[s] - (float)sm.cnt[s];
-  __syncthreads();
-  // Ties at tau, ranked by buffer position: one warp per stratum walks the
-  // buffer in order.
-  for (int s = warp; s < X; s += kWarps) {
-    const float t = sm.tau[s], slack = sm.slack[s];
-    int carry = 0;
-    for (int base = 0; base < m; base += 32) {
-      const int k = base + lane;
-      const bool tie = k < m && valid[k] && strata[k] == s && prio[k] == t;
-      const unsigned b = __ballot_sync(kFull, tie);
-      const int rank = carry + __popc(b & ((2u << lane) - 1u));  // inclusive
-      if (tie && (float)rank <= slack) keep[k] = 1;
-      carry += __popc(b);
+  // Strict keeps and ties, per stratum, over the slice.
+  int strict_here = 0;
+  for (int base = begin; base < end; base += kThreads) {
+    const int k = base + tid;
+    bool v = false;
+    int s = 0;
+    float u = 0.f;
+    if (k < end) {
+      v = valid[k] != 0;
+      s = strata[k];
+      u = prio[k];
     }
+    const float t = __int_as_float(st.pre[clamp_stratum(s, X)]);
+    const bool strict = v && u > t;
+    const bool inr = v && s >= 0 && s < X;
+    add_by_key(st.cnt, s, inr && strict);
+    add_by_key(st.ties, s, inr && !strict && u == t);
+    strict_here += strict ? 1 : 0;
   }
+  strict_here = block_sum(strict_here, f);
+  if (tid == 0) f.strict_total = strict_here;
+  PROBE(kProbeSlots - 6);
+  cluster_sync();
+  PROBE(kProbeSlots - 5);
+  // Every CTA's counts: the slack, this CTA's first tie rank, and the
+  // keeps before this CTA and in the node.
+  long long ties_before = 0, ties_total = 0;
+  for (int s = tid; s < X; s += kThreads) {
+    int strict = 0, tl[kMaxCluster];
+#pragma unroll
+    for (int r = 0; r < kMaxCluster; ++r) {
+      tl[r] = 0;
+      if (r < st.cs) {
+        strict += remote(st.cnt, r)[s];
+        tl[r] = remote(st.ties, r)[s];
+      }
+    }
+    const float slack = res[s] - (float)strict;
+    const long long last = last_rank(slack);
+    long long run = 0;
+#pragma unroll
+    for (int r = 0; r < kMaxCluster; ++r) {
+      const long long kept = min(max(last - run, 0LL), (long long)tl[r]);
+      if (r < rank) ties_before += kept;
+      if (r == rank) st.carry[s] = (int)run;
+      ties_total += kept;
+      run += tl[r];
+    }
+    st.kk[s] = __float_as_int(slack);
+  }
+  gather_scalar(f, &f.strict_total, nullptr, rank, st.cs);
+  cluster_arrive();  // no DSMEM read after this
+  const int tb = block_sum((int)ties_before, f);
+  const int ta = block_sum((int)ties_total, f);
+  kept_before = f.sum_before + tb;
+  kept_total = f.sum_all + ta;
+  PROBE(kProbeSlots - 4);
+  // The keeps: strict ones, then ties ranked in buffer order. Each thread
+  // takes a run of the slice; ties are marked 2 until ranked.
+  const int per = (end - begin + kThreads - 1) / kThreads;
+  const int a = min(begin + tid * per, end), z = min(a + per, end);
+  int n_ties = 0;
+  for (int k = a; k < z; ++k) {
+    const bool v = valid[k] != 0;
+    const int s = strata[k];
+    const float u = prio[k];
+    const float t = __int_as_float(st.pre[clamp_stratum(s, X)]);
+    const bool strict = v && u > t;
+    const bool tie = v && s >= 0 && s < X && !strict && u == t;
+    keep[k] = strict ? 1 : (tie ? 2 : 0);
+    n_ties += tie ? 1 : 0;
+  }
+  int total_ties;
+  int at = block_exclusive_scan(n_ties, f, total_ties);
+  int* ties = list + begin;  // this CTA's share of the node's list
+  if (n_ties)
+    for (int k = a; k < z; ++k)
+      if (keep[k] == 2) ties[at++] = k;
   __syncthreads();
+  if (total_ties > 0 && (tid >> 5) == 0)
+    rank_ties(ties, total_ties, strata, st, keep);
+  __syncthreads();
+  PROBE(kProbeSlots - 3);
 }
 
-__global__ void __launch_bounds__(kThreads)
+// Writes the kept items of the CTA's slice, in buffer order, to
+// [kept_before, ...) of the node's compacted buffers (those below
+// out_cap), zeroes the buffers from the node's keep count on (this CTA's
+// share), and rank 0 writes the count.
+__device__ void compact_phase(const float* values, const int* strata,
+                              const uint8_t* keep, int begin, int end,
+                              int rank, int cs, int out_cap, int kept_before,
+                              int kept_total, Fixed& f, float* vc, int* sc,
+                              int* n_keep) {
+  const int tid = threadIdx.x;
+  const int per = (end - begin + kThreads - 1) / kThreads;
+  const int a = min(begin + tid * per, end), z = min(a + per, end);
+  int mine = 0;
+  for (int k = a; k < z; ++k) mine += keep[k];
+  int total;
+  int dest = kept_before + block_exclusive_scan(mine, f, total);
+  if (mine) {
+    for (int k = a; k < z && dest < out_cap; ++k) {
+      if (keep[k]) {
+        vc[dest] = values[k];
+        sc[dest] = strata[k];
+        ++dest;
+      }
+    }
+  }
+  for (int j = min(kept_total, out_cap) + rank * kThreads + tid; j < out_cap;
+       j += cs * kThreads) {
+    vc[j] = 0.f;
+    sc[j] = 0;
+  }
+  if (rank == 0 && tid == 0) *n_keep = kept_total;
+}
+
+// grid n * cs, clusters of cs CTAs, block kThreads: cluster i owns node i,
+// CTA r of it the r-th slice of the node's buffer.
+__global__ void __launch_bounds__(kThreads, 1)
 fused_level_tick_kernel(const float* __restrict__ values_all,
                         const int* __restrict__ strata_all,
                         const uint8_t* __restrict__ valid_all,
@@ -384,119 +841,155 @@ fused_level_tick_kernel(const float* __restrict__ values_all,
                         const float* __restrict__ w_in,
                         const float* __restrict__ c_in,
                         const float* __restrict__ sample_size, int cap, int X,
-                        int out_cap, int policy, int async_calibration,
-                        float* scratch_all, uint8_t* keep_all, float* values_c,
-                        int* strata_c, int* n_keep, float* c_out_counts,
-                        float* res_out, float* y_out, float* w_out,
-                        float* c_out) {
-  __shared__ Fixed fixed;
-  Shared sm = carve(fixed, X);
-  const int node = blockIdx.x, tid = threadIdx.x, lane = tid & 31,
-            warp = tid >> 5;
+                        int b, int out_cap, int policy, int async_calibration,
+                        float* scratch_all, int* list_all, uint8_t* keep_all,
+                        float* values_c, int* strata_c, int* n_keep,
+                        float* c_out_counts, float* res_out, float* y_out,
+                        float* w_out, float* c_out) {
+  __shared__ Fixed f;
+  State st = carve(X, b);
+  const int rank = (int)cg::this_cluster().block_rank();
+  const int node = blockIdx.x / st.cs, tid = threadIdx.x;
   const size_t off = (size_t)node * cap;
   const float* values = values_all + off;
   const int* strata = strata_all + off;
   const uint8_t* valid = valid_all + off;
   const float* prio = prio_all + off;
   uint8_t* keep = keep_all + off;
+  const int slice = (cap + st.cs - 1) / st.cs;
+  const int begin = min(rank * slice, cap), end = min(begin + slice, cap);
+  const int xo = node * X;
+  // The allocation's arrays: in shared memory up to kRegStrata strata (its
+  // thread keeps them in registers then), else in global memory.
+  __shared__ float small_scratch[kScratchArrays * kRegStrata];
+  float* scratch = X <= kRegStrata
+                       ? small_scratch
+                       : scratch_all + (size_t)node * kScratchArrays * X;
+  PROBE(0);
+
+  count_phase(strata, valid, prio, begin, end, b, st, f);
+  PROBE(1);
+  cluster_sync();
+  PROBE(2);
+  int nv_before, nv_total, last_valid;
+  gather_counts(st, f, rank, rank == 0 ? scratch + kCounts * X : nullptr,
+                nv_before, nv_total, last_valid);
+  push_bins(st, st.hist[1], st.hist[0], st.B, b, true);  // the first digit
+  PROBE(3);
+  if (rank == 0) {
+    // Allocation, then the Alg. 2 lines 12-20 + Eq. 9 weight update.
+    const float* counts = scratch + kCounts * X;
+    if (policy == kNeyman)
+      stds_phase(values, strata, valid, cap, X, counts, scratch + kStds * X);
+    __syncthreads();
+    if (tid == 0)
+      f.saturated = allocate_node(sample_size[0], policy, X, scratch) ? 1 : 0;
+    __syncthreads();
+    PROBE(4);
+    for (int s = tid; s < X; s += kThreads) {
+      const float c = counts[s], r = scratch[kAlloc * X + s];
+      const float wi = w_in[xo + s], ci = c_in[xo + s];
+      const float y = fminf(c, fmaxf(r, 0.f));
+      const float w_local = c > r ? c / fmaxf(r, 1.f) : 1.f;
+      const float calib = (async_calibration && ci > 0.f && c > 0.f)
+                              ? ci / fmaxf(c, 1.f) : 1.f;
+      const float w = wi * w_local * calib;
+      c_out_counts[xo + s] = c;
+      res_out[xo + s] = r;
+      y_out[xo + s] = y;
+      w_out[xo + s] = c > 0.f ? w : wi;
+      c_out[xo + s] = c > 0.f ? y : ci;
+    }
+  }
+  PROBE(5);
+  cluster_sync();  // the allocation is out
+  PROBE(6);
+  const bool saturated = *remote(&f.saturated, 0) != 0;
+  int kept_before, kept_total;
+  select_phase(prio, strata, valid, res_out + xo, begin, end, rank, b,
+               saturated, nv_before, nv_total, st, f,
+               list_all + off, keep, kept_before, kept_total);
+
   float* vc = values_c + (size_t)node * out_cap;
   int* sc = strata_c + (size_t)node * out_cap;
-  const int xo = node * X;
-
-  count_phase(strata, valid, cap, X, sm);
-  if (policy == kNeyman) stds_phase(values, strata, valid, cap, X, sm);
-
-  // Allocation, then the Alg. 2 lines 12-20 + Eq. 9 weight update.
-  if (tid == 0) {
-    float* scratch = scratch_all + (size_t)node * kScratchArrays * X;
-    allocate(sample_size[0], sm.c, sm.stds, policy, X, scratch);
-    const float* alloc = scratch + kAlloc * X;
-    int sat = 1;
-    for (int i = 0; i < X; ++i) {
-      sm.res[i] = alloc[i];
-      sat &= alloc[i] >= sm.c[i];
-    }
-    sm.saturated = sat;
-  }
-  __syncthreads();
-  for (int s = tid; s < X; s += kThreads) {
-    const float c = sm.c[s], r = sm.res[s];
-    const float wi = w_in[xo + s], ci = c_in[xo + s];
-    const float y = fminf(c, fmaxf(r, 0.f));
-    const float w_local = c > r ? c / fmaxf(r, 1.f) : 1.f;
-    const float calib = (async_calibration && ci > 0.f && c > 0.f)
-                            ? ci / fmaxf(c, 1.f) : 1.f;
-    const float w = wi * w_local * calib;
-    c_out_counts[xo + s] = c;
-    res_out[xo + s] = r;
-    y_out[xo + s] = y;
-    w_out[xo + s] = c > 0.f ? w : wi;
-    c_out[xo + s] = c > 0.f ? y : ci;
-  }
-
-  select_phase(prio, strata, valid, cap, X, sm, keep);
-
-  // Compaction.
-  const int n_valid = sm.n_valid;
-  const bool front_packed = sm.last_valid + 1 == n_valid;
-  if (sm.saturated && front_packed) {
+  if (saturated && last_valid + 1 == nv_total) {
     // Everything valid is kept and already at the front: a truncating copy.
-    const int nk = min(n_valid, out_cap);
-    for (int j = tid; j < out_cap; j += kThreads) {
+    const int nk = min(nv_total, out_cap);
+    for (int j = rank * kThreads + tid; j < out_cap; j += st.cs * kThreads) {
       vc[j] = j < nk ? values[j] : 0.f;
       sc[j] = j < nk ? strata[j] : 0;
     }
-    if (tid == 0) n_keep[node] = n_valid;
-    return;
+    if (rank == 0 && tid == 0) n_keep[node] = nv_total;
+  } else {
+    compact_phase(values, strata, keep, begin, end, rank, st.cs, out_cap,
+                  kept_before, kept_total, f, vc, sc, n_keep + node);
   }
-  int carry = 0;
-  for (int base = 0; base < cap; base += kThreads) {
-    const int k = base + tid;
-    const bool f = k < cap && keep[k];
-    const unsigned b = __ballot_sync(kFull, f);
-    if (lane == 0) sm.wtot[warp] = __popc(b);
-    __syncthreads();
-    int woff = 0, total = 0;
-    for (int w = 0; w < kWarps; ++w) {
-      const int t = sm.wtot[w];
-      woff += w < warp ? t : 0;
-      total += t;
-    }
-    const int dest = carry + woff + __popc(b & ((1u << lane) - 1u));
-    if (f && dest < out_cap) {
-      vc[dest] = values[k];
-      sc[dest] = strata[k];
-    }
-    carry += total;
-    __syncthreads();
-  }
-  for (int j = min(carry, out_cap) + tid; j < out_cap; j += kThreads) {
-    vc[j] = 0.f;
-    sc[j] = 0;
-  }
-  if (tid == 0) n_keep[node] = carry;
+  PROBE(kProbeSlots - 2);
+  cluster_wait();  // no CTA leaves while another may read its shared memory
+  PROBE(kProbeSlots - 1);
 }
 
-__global__ void __launch_bounds__(kThreads)
+// grid cs (one cluster), block kThreads.
+__global__ void __launch_bounds__(kThreads, 1)
 fused_select_kernel(const float* __restrict__ prio,
                     const int* __restrict__ strata,
                     const uint8_t* __restrict__ valid,
-                    const float* __restrict__ reservoirs, int m, int X,
-                    uint8_t* keep) {
-  __shared__ Fixed fixed;
-  Shared sm = carve(fixed, X);
-  const int tid = threadIdx.x;
-  count_phase(strata, valid, m, X, sm);
-  if (tid == 0) {
-    int sat = 1;
-    for (int i = 0; i < X; ++i) {
-      sm.res[i] = reservoirs[i];
-      sat &= reservoirs[i] >= sm.c[i];
-    }
-    sm.saturated = sat;
+                    const float* __restrict__ reservoirs, int m, int X, int b,
+                    int* list, uint8_t* keep) {
+  __shared__ Fixed f;
+  State st = carve(X, b);
+  const int rank = (int)cg::this_cluster().block_rank();
+  const int slice = (m + st.cs - 1) / st.cs;
+  const int begin = min(rank * slice, m), end = min(begin + slice, m);
+  PROBE(0);
+  count_phase(strata, valid, prio, begin, end, b, st, f);
+  PROBE(1);
+  cluster_sync();
+  PROBE(2);
+  int nv_before, nv_total, last_valid;
+  gather_counts(st, f, rank, nullptr, nv_before, nv_total, last_valid);
+  PROBE(3);
+  int sat = 1;
+  for (int s = threadIdx.x; s < X; s += kThreads)
+    sat &= reservoirs[s] >= (float)st.carry[s];
+  const bool saturated = __syncthreads_and(sat) != 0;
+  if (!saturated) {
+    push_bins(st, st.hist[1], st.hist[0], st.B, b, true);  // the first digit
+    cluster_sync();
   }
-  __syncthreads();
-  select_phase(prio, strata, valid, m, X, sm, keep);
+  PROBE(6);
+  int kept_before, kept_total;
+  select_phase(prio, strata, valid, reservoirs, begin, end, rank, b,
+               saturated, nv_before, nv_total, st, f, list, keep,
+               kept_before, kept_total);
+  PROBE(kProbeSlots - 2);
+  cluster_wait();
+  PROBE(kProbeSlots - 1);
+}
+
+cudaError_t launch_cluster_setup(const void* kernel, int X, size_t& smem) {
+  const int B = 1 << digit_bits(X);
+  smem = (size_t)(kStateArrays + 2 * B) * X * sizeof(int);
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)smem);
+}
+
+cudaLaunchConfig_t cluster_config(int clusters, int cs, size_t smem,
+                                  cudaStream_t stream,
+                                  cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(clusters * cs, 1, 1);
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = cs;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
 }
 
 }  // namespace
@@ -507,42 +1000,63 @@ const char* repro_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// Words of global scratch per node that fused_level_tick_launch needs.
+// Floats of global scratch per node that fused_level_tick_launch needs
+// (beside an int per slot for the tie lists).
 int fused_level_tick_scratch_words(int X) { return kScratchArrays * X; }
+
+// Bits per radix digit at X strata.
+int fused_level_tick_digit_bits(int X) { return digit_bits(X); }
+
+#ifdef REPRO_PHASE_PROBE
+// Names the buffer of kProbeSlots timestamps a CTA (nullptr: none).
+int fused_level_tick_set_probe(long long* buf) {
+  return static_cast<int>(cudaMemcpyToSymbol(g_probe, &buf, sizeof(buf)));
+}
+
+int fused_level_tick_probe_slots() { return kProbeSlots; }
+#endif
 
 int fused_level_tick_launch(const float* values, const int* strata,
                             const uint8_t* valid, const float* prio,
                             const float* w_in, const float* c_in,
                             const float* sample_size, int n, int cap, int X,
                             int out_cap, int policy, int async_calibration,
-                            float* scratch, uint8_t* keep, float* values_c,
-                            int* strata_c, int* n_keep, float* c,
-                            float* reservoirs, float* y, float* w_out,
-                            float* c_out, cudaStream_t stream) {
-  if (X < 1 || X > kMaxStrata) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = (size_t)kStratumWords * X * sizeof(int);
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_level_tick_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+                            int cs, float* scratch, int* list, uint8_t* keep,
+                            float* values_c, int* strata_c, int* n_keep,
+                            float* c, float* reservoirs, float* y,
+                            float* w_out, float* c_out, cudaStream_t stream) {
+  if (X < 1 || X > kMaxStrata || cs < 1 || cs > kMaxCluster)
+    return static_cast<int>(cudaErrorInvalidValue);
+  size_t smem;
+  cudaError_t err = launch_cluster_setup(
+      reinterpret_cast<const void*>(fused_level_tick_kernel), X, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  fused_level_tick_kernel<<<n, kThreads, smem, stream>>>(
-      values, strata, valid, prio, w_in, c_in, sample_size, cap, X, out_cap,
-      policy, async_calibration, scratch, keep, values_c, strata_c, n_keep, c,
-      reservoirs, y, w_out, c_out);
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = cluster_config(n, cs, smem, stream, &attr);
+  err = cudaLaunchKernelEx(&cfg, fused_level_tick_kernel, values, strata,
+                           valid, prio, w_in, c_in, sample_size, cap, X,
+                           digit_bits(X), out_cap, policy, async_calibration,
+                           scratch, list, keep, values_c, strata_c, n_keep,
+                           c, reservoirs, y, w_out, c_out);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
 int fused_select_launch(const float* prio, const int* strata,
                         const uint8_t* valid, const float* reservoirs, int m,
-                        int X, uint8_t* keep, cudaStream_t stream) {
-  if (X < 1 || X > kMaxStrata) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = (size_t)kStratumWords * X * sizeof(int);
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_select_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+                        int X, int cs, int* list, uint8_t* keep,
+                        cudaStream_t stream) {
+  if (X < 1 || X > kMaxStrata || cs < 1 || cs > kMaxCluster)
+    return static_cast<int>(cudaErrorInvalidValue);
+  size_t smem;
+  cudaError_t err = launch_cluster_setup(
+      reinterpret_cast<const void*>(fused_select_kernel), X, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  fused_select_kernel<<<1, kThreads, smem, stream>>>(prio, strata, valid,
-                                                     reservoirs, m, X, keep);
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = cluster_config(1, cs, smem, stream, &attr);
+  err = cudaLaunchKernelEx(&cfg, fused_select_kernel, prio, strata, valid,
+                           reservoirs, m, X, digit_bits(X), list, keep);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -36,30 +36,45 @@
 //   stable sort of each tile by bucket was the alternative; the ballot
 //   walk needs no sort and no scratch beyond the tile.)
 
-// quantile_compact: for each of C rank targets, the sum of the values of
-// the slots whose weight interval [cumw_prev, cumw) holds it (one slot at
-// most when the intervals partition [0, W), as the caller's do); a target
-// at or past W gives 0.
-//   What bounds it on this card: the P x C membership tests (P ~ 2,456
-//   slots, C = 128 at the root's level-0 fold): about 3e5 compares, far
-//   below a microsecond of the card's rate; bytes are 12 per slot. Like
-//   cms_update it is launch- and latency-bound at these sizes.
-//   What the design does about it: one thread per target, the slots
-//   staged through shared memory in tiles, each thread walking every slot
-//   in order with the plain version's membership rule (not a binary
-//   search, so the two agree on any input, not only on sorted ones).
+// quantile_compact: for each of C rank targets t, the sum over slots i, in
+// slot order from 0.0, of values[i] where cumw_prev[i] <= t < cumw[i]; a
+// target that no interval holds gives +0.0, and so does a lone hit of
+// -0.0 (0.0f + -0.0f is +0.0f).
+//   The trap: the sketch builds cumw with the reference's blocked scan
+//   (query/sketches.py blocked_cumsum), which can fall by an ulp at a
+//   16-slot block boundary. Its intervals then do not partition [0, W): a
+//   target in such a dip lies in two slots, and the plain version adds
+//   both. A binary search over cumw (searchsorted + gather) returns one of
+//   them, so it is not this function.
+//   What bounds it on this card: neither bytes (12 per slot, 8 per
+//   target) nor operations (each slot and each target looked at once) at
+//   the path's sizes (P ~ 400-2,500 slots, C = 64-256 targets): launch
+//   and the latency of one pass over the slots.
+//   What the design does about it: the P x C membership tests are spread
+//   over ceil(C / 4) blocks of 256 threads, four targets a block, every
+//   thread testing a strided share of the slots against the block's four
+//   targets held in registers (16, 32 and 64 blocks at C = 64, 128 and
+//   256). A hit adds 1 to its target's hit count and folds its slot
+//   into the target's lowest and highest hit index, all integer
+//   shared-memory atomics (exact in any order; no float atomics). Then one
+//   thread a target writes 0.0f for no hit, 0.0f + values[i] for one, and
+//   for two or more walks the slots from the lowest to the highest hit in
+//   slot order, adding each hit to 0.0f as the plain version's sum does.
+//   Two hits sum alike in any order; for three or more, see PERF.md
+//   (the plain version is a torch.sum whose order is the CPU's own).
 //
 // Built with -fmad=false like the other kernels; neither kernel multiplies.
 
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 namespace {
 
 constexpr int kCmsMaxThreads = 1024;   // 32 buckets per block, cms_update
 constexpr int kTile = 4096;        // items staged per pass, cms_update
-constexpr int kTargets = 256;      // targets per block, quantile_compact
-constexpr int kSlots = 1024;       // slots staged per pass, quantile_compact
+constexpr int kQcThreads = 256;    // threads per block, quantile_compact
+constexpr int kQcTargets = 4;      // targets per block, quantile_compact
 constexpr unsigned kFull = 0xffffffffu;
 
 __constant__ uint32_t kMult[6] = {0x9E3779B1u, 0x85EBCA77u, 0xC2B2AE3Du,
@@ -104,31 +119,53 @@ cms_update_kernel(const uint32_t* __restrict__ keys,
     out[static_cast<size_t>(d) * width + mine] = acc;
 }
 
-// grid ceil(C / 256), block 256.
-__global__ void __launch_bounds__(kTargets)
+// grid ceil(C / kQcTargets), block kQcThreads: block x owns targets
+// [kQcTargets x, kQcTargets (x + 1)).
+__global__ void __launch_bounds__(kQcThreads)
 quantile_compact_kernel(const float* __restrict__ values,
                         const float* __restrict__ cumw_prev,
                         const float* __restrict__ cumw,
                         const float* __restrict__ targets, int p, int c,
                         float* __restrict__ out) {
-  __shared__ float s_v[kSlots], s_lo[kSlots], s_hi[kSlots];
-  const int k = blockIdx.x * kTargets + threadIdx.x;
-  const float t = k < c ? targets[k] : 0.f;
-  float acc = 0.f;
-  for (int base = 0; base < p; base += kSlots) {
-    const int n = min(kSlots, p - base);
-    for (int i = threadIdx.x; i < n; i += kTargets) {
-      s_v[i] = values[base + i];
-      s_lo[i] = cumw_prev[base + i];
-      s_hi[i] = cumw[base + i];
-    }
-    __syncthreads();
-    for (int i = 0; i < n; ++i) {
-      if (s_lo[i] <= t && t < s_hi[i]) acc = acc + s_v[i];
-    }
-    __syncthreads();
+  __shared__ int s_hits[kQcTargets], s_first[kQcTargets],
+      s_last[kQcTargets];
+  const int k0 = blockIdx.x * kQcTargets;
+  float t[kQcTargets];
+#pragma unroll
+  for (int j = 0; j < kQcTargets; ++j)   // NaN: a padding target hits nothing
+    t[j] = k0 + j < c ? targets[k0 + j] : __int_as_float(0x7fc00000);
+  if (threadIdx.x < kQcTargets) {
+    s_hits[threadIdx.x] = 0;
+    s_first[threadIdx.x] = INT_MAX;
+    s_last[threadIdx.x] = -1;
   }
-  if (k < c) out[k] = acc;
+  __syncthreads();
+#pragma unroll 4
+  for (int i = threadIdx.x; i < p; i += kQcThreads) {
+    const float lo = __ldg(cumw_prev + i), hi = __ldg(cumw + i);
+#pragma unroll
+    for (int j = 0; j < kQcTargets; ++j) {
+      if (lo <= t[j] && t[j] < hi) {
+        atomicAdd(&s_hits[j], 1);
+        atomicMin(&s_first[j], i);
+        atomicMax(&s_last[j], i);
+      }
+    }
+  }
+  __syncthreads();
+  const int j = threadIdx.x;
+  if (j < kQcTargets && k0 + j < c) {
+    const float tj = targets[k0 + j];
+    const int hits = s_hits[j];
+    float acc = 0.f;
+    if (hits == 1) {
+      acc = acc + values[s_first[j]];
+    } else if (hits > 1) {            // in slot order, as the plain sum
+      for (int i = s_first[j]; i <= s_last[j]; ++i)
+        if (cumw_prev[i] <= tj && tj < cumw[i]) acc = acc + values[i];
+    }
+    out[k0 + j] = acc;
+  }
 }
 
 }  // namespace
@@ -154,8 +191,8 @@ int cms_update_launch(const uint32_t* keys, const float* weights, int m,
 int quantile_compact_launch(const float* values, const float* cumw_prev,
                             const float* cumw, const float* targets, int p,
                             int c, float* out, cudaStream_t stream) {
-  const int blocks = (c + kTargets - 1) / kTargets;
-  quantile_compact_kernel<<<blocks, kTargets, 0, stream>>>(
+  const int blocks = (c + kQcTargets - 1) / kQcTargets;
+  quantile_compact_kernel<<<blocks, kQcThreads, 0, stream>>>(
       values, cumw_prev, cumw, targets, p, c, out);
   return static_cast<int>(cudaGetLastError());
 }

@@ -15,10 +15,26 @@ import torch
 from repro_torch.kernels import LAUNCHES, _build
 from repro_torch.kernels.fused_level_tick import ref
 
-# Per-stratum block state sits in dynamic shared memory (12 words a
-# stratum: 192 KB at 4,096), the allocation's arrays in a global scratch.
+# Per-stratum cluster state sits in each CTA's dynamic shared memory: five
+# words a stratum and two radix-digit histograms of 2^b words a stratum,
+# within _SMEM_WORDS (208 KB; b = 2 at 4,096 strata). The tie lists and,
+# above 4 strata, the allocation's arrays live in global scratch.
 MAX_STRATA = 4096
 _POLICIES = {"fair": 0, "proportional": 1, "neyman": 2}
+_STATE_ARRAYS, _SMEM_WORDS = 5, 53248
+# CTAs per node: one thread-block cluster of the portable size. Fewer were
+# slower at every shape of the main path (tools/fused_tick_phases.py).
+CLUSTER = 8
+
+
+def digit_bits(num_strata: int) -> int:
+    """Bits per radix digit of the kernels' τ search at ``num_strata``
+    strata (``digit_bits`` in ``csrc/fused_level_tick.cu``): 8 while two
+    histogram buffers fit beside the per-stratum arrays, fewer above."""
+    b = 8
+    while b > 2 and (_STATE_ARRAYS + 2 * (1 << b)) * num_strata > _SMEM_WORDS:
+        b -= 1
+    return b
 
 
 def _lib():
@@ -26,12 +42,14 @@ def _lib():
     if lib.fused_level_tick_launch.argtypes is None:
         P, I = ctypes.c_void_p, ctypes.c_int
         lib.fused_level_tick_launch.argtypes = (
-            [P] * 7 + [I] * 6 + [P] * 10 + [P])
+            [P] * 7 + [I] * 7 + [P] * 11 + [P])
         lib.fused_level_tick_launch.restype = I
-        lib.fused_select_launch.argtypes = [P, P, P, P, I, I, P, P]
+        lib.fused_select_launch.argtypes = [P, P, P, P, I, I, I, P, P, P]
         lib.fused_select_launch.restype = I
-        lib.fused_level_tick_scratch_words.argtypes = [I]
-        lib.fused_level_tick_scratch_words.restype = I
+        for fn in (lib.fused_level_tick_scratch_words,
+                   lib.fused_level_tick_digit_bits):
+            fn.argtypes = [I]
+            fn.restype = I
     return lib
 
 
@@ -106,13 +124,15 @@ def fused_level_tick(values, strata, valid, priorities, w_in, c_in,
     lib = _lib()
     scratch = torch.empty(
         (n * lib.fused_level_tick_scratch_words(num_strata),), **f32)
+    ties = torch.empty((n * cap,), dtype=torch.int32, device=dev)
     P = _build.ptr
     rc = lib.fused_level_tick_launch(
         P(values), P(strata), P(valid), P(priorities), P(w_in), P(c_in),
         P(size), n, cap, num_strata, out_capacity, _POLICIES[allocation],
-        int(bool(async_calibration)), P(scratch), P(keep), P(values_c), P(strata_c),
-        P(n_keep), P(c), P(res), P(y), P(w_out), P(c_out),
-        _build.stream_of(values))
+        int(bool(async_calibration)), CLUSTER, P(scratch),
+        P(ties), P(keep),
+        P(values_c), P(strata_c), P(n_keep), P(c), P(res), P(y), P(w_out),
+        P(c_out), _build.stream_of(values))
     _build.check(lib, rc, what)
     LAUNCHES["fused_level_tick"] += 1
     return keep, values_c, strata_c, n_keep, c, res, y, w_out, c_out
@@ -141,10 +161,12 @@ def fused_select(priorities, strata, valid, reservoirs,
     _need(tuple(res.shape) == (num_strata,), what,
           f"reservoirs must be [{num_strata}], got {tuple(res.shape)}")
     keep = torch.empty((m,), dtype=torch.bool, device=dev)
+    ties = torch.empty((m,), dtype=torch.int32, device=dev)
     lib = _lib()
     P = _build.ptr
     rc = lib.fused_select_launch(P(priorities), P(strata), P(valid), P(res),
-                                 m, num_strata, P(keep),
+                                 m, num_strata, CLUSTER, P(ties),
+                                 P(keep),
                                  _build.stream_of(priorities))
     _build.check(lib, rc, what)
     LAUNCHES["fused_select"] += 1

@@ -80,9 +80,11 @@ def cms_update(keys: torch.Tensor, weights: torch.Tensor, depth: int,
 def quantile_compact(values: torch.Tensor, cumw_prev: torch.Tensor,
                      cumw: torch.Tensor, targets: torch.Tensor
                      ) -> torch.Tensor:
-    """f32[C]: the value of the slot whose ``[cumw_prev, cumw)`` interval
-    holds each target (``values``, ``cumw_prev``, ``cumw`` f32[P],
-    ``targets`` f32[C]); 0 for a target that no interval holds."""
+    """f32[C]: the sum of the values of the slots whose ``[cumw_prev,
+    cumw)`` interval holds each target (``values``, ``cumw_prev``,
+    ``cumw`` f32[P], ``targets`` f32[C]): one slot, or two where the
+    sketch's blocked cumsum dips; 0 for a target that no interval
+    holds."""
     if not _route("quantile_compact", values):
         return ref.quantile_compact(values, cumw_prev, cumw, targets)
     f32 = torch.float32

@@ -10,9 +10,11 @@ Mirrors ``repro/kernels/sketch_update/ref.py``:
   bucket's weights in item order, as the reference's scatter does, so
   the two agree bit for bit.
 * ``quantile_compact`` — the interval-membership sum: for each target
-  ``t``, the values of the slots with ``cumw_prev ≤ t < cumw``. Where the
-  intervals are disjoint (the caller's are) at most one slot holds each
-  target, so any summation order gives the same bits.
+  ``t``, the values of the slots with ``cumw_prev ≤ t < cumw``. The
+  sketch's intervals come from a blocked cumsum that can fall by an ulp
+  at a block boundary, so a target may lie in two slots; two values sum
+  alike in any order. Three or more would be added in ``torch.sum``'s
+  own association.
 """
 from __future__ import annotations
 

@@ -14,7 +14,12 @@ sketches that call them (``hh_update``, ``quantile_update``) launch them
 as often as their design says. ``sample_mask`` and the ordered
 ``segment_sum`` are compared bitwise too (the latter against the CPU's
 ``index_add_``, on sums whose value depends on their order). The
-``pallas_fused`` kernels are held bitwise above 32 strata per node too.
+``pallas_fused`` kernels are held bitwise above 32 strata per node too,
+at every change of the radix digit's width up to 4,096 strata, on caps
+that the cluster of CTAs does not divide or that are smaller than it, on
+strata whose priorities are all equal or that hold no valid item, and at
+``n_eff = 1``. ``quantile_compact`` is held on intervals the sketch builds
+(``blocked_cumsum``), where a target can fall in two slots.
 ``flash_attention`` is held to its plain version within
 ``FLASH_F32_TOL`` in f32 and one bf16 ulp in bf16 (see
 ``assert_flash_close``), the bf16 (tensor-core) kernel over sequence
@@ -87,6 +92,12 @@ GRID = [
     (3, 4096, 6, 1000, 0.9, False, "neyman", 1000, False),
     (3, 8192, 32, 1500, 0.95, False, "neyman", 1200, True),  # the limit
     (2, 1024, 4, 0, 1.0, True, "fair", 64, False),         # zero budget
+    # caps that the cluster of 8 CTAs does not divide, or smaller than it
+    (3, 2203, 4, 700, 0.9, False, "fair", 600, True),
+    (2, 1001, 6, 300, 1.0, True, "proportional", 300, False),
+    (3, 5, 2, 2, 1.0, True, "fair", 5, False),
+    (2, 7, 3, 4, 0.9, False, "neyman", 3, True),
+    (4, 1, 1, 1, 1.0, True, "fair", 1, False),
 ]
 
 
@@ -230,6 +241,51 @@ def test_quantile_compact_kernel_matches_plain(cuda_device, p, c):
     got = tsk.quantile_compact(*(a.to(cuda_device) for a in args))
     _bits(got.cpu().numpy(), want.numpy())
     assert float(got[-1]) == 0.0
+
+
+def _sketch_intervals(seed, p, c):
+    """Intervals as the sketch builds them: ``cumw`` by ``blocked_cumsum``
+    (which can fall by an ulp at a block boundary), ``cumw_prev`` shifted
+    by one, weights with zeros. Targets sit in every descent (a target
+    there lies in two slots) and on a lone ``-0.0`` value; the rest are
+    equi-spaced, the last at the total (no slot). Returns the arrays and
+    each target's number of hits."""
+    rng = np.random.default_rng(seed)
+    v = np.sort(rng.normal(0, 30, p)).astype(np.float32)
+    w = (rng.uniform(0.5, 3.0, p) * rng.choice([1.0, 7.0, 1000.0], p)
+         ).astype(np.float32)
+    w[rng.random(p) < 0.3] = 0.0
+    cumw = tsketch.blocked_cumsum(torch.from_numpy(w)).numpy()
+    prev = np.concatenate([[0.0], cumw[:-1]]).astype(np.float32)
+    live = np.nonzero(w > 0)[0]
+    z = live[np.argmin(np.abs(v[live]))]
+    v[z] = -0.0
+    dips = cumw[np.nonzero(cumw[1:] < cumw[:-1])[0] + 1][: c // 2]
+    n_eq = c - len(dips) - 2
+    t = np.concatenate([
+        ((np.arange(n_eq) + rng.random()) * cumw[-1] / n_eq),
+        dips, [(prev[z] + cumw[z]) / 2, cumw[-1]]]).astype(np.float32)
+    hits = ((prev[:, None] <= t[None, :]) & (t[None, :] < cumw[:, None])
+            ).sum(0)
+    return [torch.from_numpy(a) for a in (v, prev, cumw, t)], hits
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p,c", [(1025, 64), (2456, 128), (5000, 300),
+                                 (65536, 640)])
+def test_quantile_compact_kernel_on_sketch_intervals(cuda_device, p, c):
+    """A target in a descent of the blocked cumsum hits two slots, and the
+    plain version adds both; a lone ``-0.0`` hit gives ``+0.0``; more than
+    one block of targets; up to 65,536 slots."""
+    args, hits = _sketch_intervals(p + c, p, c)
+    assert (hits == 2).any() and hits[-2] == 1 and hits[-1] == 0
+    want = tsk_ref.quantile_compact(*args)
+    reset_launches()
+    got = tsk.quantile_compact(*(a.to(cuda_device) for a in args))
+    torch.cuda.synchronize()
+    assert LAUNCHES["quantile_compact"] == 1
+    _bits(got.cpu().numpy(), want.numpy())
+    assert float(want[-2]) == 0.0 and not np.signbit(want.numpy()[-2])
 
 
 @pytest.mark.cuda
@@ -389,6 +445,7 @@ WIDE_GRID = [
     (2, 8192, 1000, 1500, 0.9, False, "proportional", 1200, False),
     (1, 8192, 1000, 3000, 0.95, True, "fair", 3000, True),
     (1, 8192, 1000, 2500, 0.9, False, "neyman", 2000, False),
+    (3, 3333, 40, 800, 0.8, False, "neyman", 700, True),
 ]
 
 
@@ -427,6 +484,69 @@ def test_fused_select_kernel_takes_many_strata(cuda_device, m, x):
     got = tft.fused_select(*(a.to(cuda_device) for a in t),
                            res.to(cuda_device), x)
     _bits(got.cpu().numpy(), want.numpy())
+
+
+def _degenerate(arrs, x, fill_equal=0.37):
+    """Stratum 0's valid priorities all equal, stratum ``x - 1`` (when
+    ``x > 1``) without a valid item."""
+    vals, strata, valid, u, w_in, c_in = (a.copy() for a in arrs)
+    u[strata == 0] = np.float32(fill_equal)
+    if x > 1:
+        valid[strata == x - 1] = False
+    return vals, strata, valid, u, w_in, c_in
+
+
+# (n, cap, X, budget, allocation, out_capacity, ties): X at both sides of
+# every change of the radix digit's width (fused_level_tick digit_bits),
+# and 4,096; neyman above 32 strata; n_eff = 1 (budget = X).
+CHANGES_X = [102, 103, 204, 205, 400, 401, 771, 772, 1439, 1440, 2535,
+             2536, 4096]
+CLUSTER_GRID = (
+    [(1, 9000, x, 3000, "fair", 2000, x % 2 == 0) for x in CHANGES_X]
+    + [(2, 4096, 100, 900, "neyman", 900, True),
+       (1, 8192, 4096, 5000, "neyman", 4000, False),
+       (2, 4099, 4, 4, "fair", 64, True),            # n_eff = 1 each
+       (3, 2200, 8, 8, "proportional", 8, False),    # n_eff = 1 each
+       (2, 4096, 4, 700, "fair", 700, False)])
+
+
+@pytest.mark.cuda
+def test_fused_level_tick_digit_bits_match_the_wrapper(cuda_device):
+    lib = tft._lib()
+    assert [lib.fused_level_tick_digit_bits(x) for x in range(1, 4097)] == [
+        tft.digit_bits(x) for x in range(1, 4097)]
+    changes = [x for x in range(2, 4097)
+               if tft.digit_bits(x) != tft.digit_bits(x - 1)]
+    assert changes == CHANGES_X[1:-1:2]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,cap,x,budget,allocation,out_cap,ties",
+                         CLUSTER_GRID)
+def test_cluster_kernels_on_edge_strata(cuda_device, n, cap, x, budget,
+                                        allocation, out_cap, ties):
+    """The cluster design at every digit width, with a stratum of equal
+    priorities and one without a valid item: ``fused_level_tick`` and
+    ``fused_select`` (over its allocation) bitwise the plain version."""
+    arrs = _degenerate(_level(n + cap + x, n, cap, x, 0.9, False, ties), x)
+    arrs = [torch.from_numpy(a) for a in arrs]
+    size = torch.tensor(float(budget))
+    want = tft_ref.fused_level_tick(*arrs, size, x, out_cap,
+                                    allocation=allocation)
+    reset_launches()
+    got = tft.fused_level_tick(*(a.to(cuda_device) for a in arrs),
+                               size.to(cuda_device), x, out_cap,
+                               allocation=allocation)
+    torch.cuda.synchronize()
+    assert LAUNCHES["fused_level_tick"] == 1
+    for name, g, w in zip(NAMES, got, want):
+        _bits(g.cpu().numpy(), w.numpy(), name)
+    t = [arrs[3][0], arrs[1][0], arrs[2][0]]
+    for res in (want[5][0], torch.ones(x)):
+        w_sel = tft_ref.fused_select(*t, res, x)
+        g_sel = tft.fused_select(*(a.to(cuda_device) for a in t),
+                                 res.to(cuda_device), x)
+        _bits(g_sel.cpu().numpy(), w_sel.numpy(), "fused_select")
 
 
 # ---- flash_attention ---------------------------------------------------------

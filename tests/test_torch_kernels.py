@@ -97,6 +97,65 @@ def test_fused_select_plain_matches_pallas(m, x, ties, sat):
     _bits(got.numpy(), np.asarray(want))
 
 
+# The CUDA kernels' cluster edge cases, at the reference kernel's sizes:
+# (n, cap, X, budget, allocation, out_capacity, ties). Caps smaller than
+# the cluster of 8 CTAs or not a multiple of it, n_eff = 1 (budget = X).
+EDGE_GRID = [
+    (3, 5, 2, 2, "fair", 5, False),
+    (2, 203, 4, 4, "fair", 64, True),
+    (2, 203, 5, 60, "neyman", 50, False),
+    (3, 77, 3, 30, "proportional", 20, True),
+    (4, 1, 1, 1, "fair", 1, False),
+]
+
+
+def _degenerate(arrs, x):
+    """Stratum 0's valid priorities all equal, stratum ``x - 1`` (when
+    ``x > 1``) without a valid item."""
+    vals, strata, valid, u, w_in, c_in = (a.copy() for a in arrs)
+    u[strata == 0] = np.float32(0.37)
+    if x > 1:
+        valid[strata == x - 1] = False
+    return vals, strata, valid, u, w_in, c_in
+
+
+@pytest.mark.parametrize("n,cap,x,budget,allocation,out_cap,ties",
+                         EDGE_GRID)
+def test_fused_plain_matches_pallas_on_edge_strata(n, cap, x, budget,
+                                                   allocation, out_cap,
+                                                   ties):
+    arrs = _degenerate(_level(n + cap + x, n, cap, x, 0.9, False, ties), x)
+    want = jft.fused_level_tick(*(jnp.asarray(a) for a in arrs),
+                                jnp.float32(budget), x, out_cap,
+                                allocation=allocation, impl="pallas")
+    got = tft.fused_level_tick(*(torch.from_numpy(a) for a in arrs),
+                               torch.tensor(float(budget)), x, out_cap,
+                               allocation=allocation)
+    for name, g, w in zip(NAMES, got, want):
+        _bits(g.numpy(), np.asarray(w), name)
+    res = np.ones(x, np.float32)
+    _, strata, valid, u, _, _ = arrs
+    want = jft.fused_select(jnp.asarray(u[0]), jnp.asarray(strata[0]),
+                            jnp.asarray(valid[0]), jnp.asarray(res), x,
+                            impl="pallas")
+    got = tft.fused_select(*(torch.from_numpy(a[0]) for a in (u, strata,
+                                                              valid)),
+                           torch.from_numpy(res), x)
+    _bits(got.numpy(), np.asarray(want))
+
+
+def test_radix_digits_narrow_as_strata_grow():
+    """The kernels' τ search takes 8-bit digits (4 passes) while two
+    histogram buffers fit beside the per-stratum arrays in 208 KB of
+    shared memory, and narrows to 2 bits (16 passes) at 4,096 strata."""
+    bits = [tft.digit_bits(x) for x in range(1, tft.MAX_STRATA + 1)]
+    assert bits[0] == bits[100] == 8 and bits[-1] == 2
+    assert all(a >= b for a, b in zip(bits, bits[1:]))
+    for x, b in zip(range(1, tft.MAX_STRATA + 1), bits):
+        assert (5 + 2 * (1 << b)) * x <= 53248
+        assert b == 8 or (5 + 2 * (2 << b)) * x > 53248
+
+
 @pytest.mark.parametrize("m,x", [(2200, 4), (5000, 32), (100, 3)])
 def test_stratified_stats_plain_matches_pallas(m, x):
     vals, strata, valid, _, _, _ = _level(m + 1, 1, m, x, 0.8, False)

@@ -6,6 +6,9 @@
   ``CMS_RTOL``/``CMS_ATOL`` (the Pallas kernel sums a bucket's weights
   in a one-hot matmul, in another order than item order — the reference's
   own tolerance in ``tests/test_kernels.py``).
+* ``quantile_compact`` on intervals the sketch builds, whose blocked
+  cumsum can fall by an ulp so that a target lies in two slots: bitwise
+  against the jitted reference and the interpret-mode Pallas kernel.
 * The reference's cumsum order (``blocked_cumsum``) and top-k tie law.
 * Every sketch function against the jitted reference, under capacity
   (lossless) and over it (every level compacts). State and answers are
@@ -119,6 +122,52 @@ def test_quantile_compact_plain_matches_reference(p, c, past):
     _bits(got, jpallas.quantile_compact(v, prev, cumw, t, interpret=True))
     if past:
         assert (got[-past:] == 0.0).all()
+
+
+def _sketch_intervals(seed, p, c):
+    """Intervals as the sketch builds them: ``cumw`` by the reference's
+    blocked scan (which can fall by an ulp at a block boundary),
+    ``cumw_prev`` shifted by one, weights with zeros. Targets sit in
+    every descent (a target there lies in two slots) and on a lone
+    ``-0.0`` value; the rest are equi-spaced, the last at the total (no
+    slot). Returns the arrays and each target's number of hits."""
+    rng = np.random.default_rng(seed)
+    v = np.sort(rng.normal(0, 30, p)).astype(np.float32)
+    w = (rng.uniform(0.5, 3.0, p) * rng.choice([1.0, 7.0, 1000.0], p)
+         ).astype(np.float32)
+    w[rng.random(p) < 0.3] = 0.0
+    cumw = T.blocked_cumsum(torch.from_numpy(w)).numpy()
+    _bits(cumw, jax.jit(jnp.cumsum)(w), "cumw")
+    prev = np.concatenate([[0.0], cumw[:-1]]).astype(np.float32)
+    live = np.nonzero(w > 0)[0]
+    z = live[np.argmin(np.abs(v[live]))]
+    v[z] = -0.0
+    dips = cumw[np.nonzero(cumw[1:] < cumw[:-1])[0] + 1][: c // 2]
+    n_eq = c - len(dips) - 2
+    t = np.concatenate([
+        ((np.arange(n_eq) + rng.random()) * cumw[-1] / n_eq),
+        dips, [(prev[z] + cumw[z]) / 2, cumw[-1]]]).astype(np.float32)
+    hits = ((prev[:, None] <= t[None, :]) & (t[None, :] < cumw[:, None])
+            ).sum(0)
+    return (v, prev, cumw, t), hits
+
+
+@pytest.mark.parametrize("p,c", [(1025, 64), (2456, 128), (5000, 300),
+                                 (65536, 300)])
+def test_quantile_compact_plain_on_sketch_intervals(p, c):
+    """Where the blocked cumsum falls, a target lies in two slots: the
+    port's plain version, the jitted reference and the interpret-mode
+    Pallas kernel all add both, bitwise; a lone ``-0.0`` gives ``+0.0``."""
+    arrs, hits = _sketch_intervals(p + c, p, c)
+    assert (hits == 2).any() and hits[-2] == 1 and hits[-1] == 0
+    got = tref.quantile_compact(*(torch.from_numpy(a) for a in arrs)).numpy()
+    _bits(got, jax.jit(jref.quantile_compact)(*arrs))
+    _bits(got, jpallas.quantile_compact(*arrs, interpret=True))
+    v = arrs[0]
+    two = np.nonzero(hits == 2)[0]
+    assert not np.array_equal(got[two], np.zeros_like(got[two]))
+    assert got[-2] == 0.0 and not np.signbit(got[-2]) and np.signbit(
+        v[v == 0.0]).any()
 
 
 def test_wrappers_on_cpu_use_the_plain_version_without_a_launch():
