@@ -26,7 +26,14 @@ Drives ``src/repro_torch`` only (nothing of JAX or of the JAX package):
    65,536 slots and 640 targets); ``sample_mask`` at the three shapes of the
    ``pallas`` path, with ties and sentinels, and at M = 1, 333, 44,033;
    the ordered ``segment_sum`` against the CPU's ``index_add_`` on sums
-   whose value depends on their order; ``flash_attention`` at the
+   whose value depends on their order, also on a row longer than one
+   staging chunk, one segment holding every item, 1,500 segments, no id
+   in range and -0.0, inf and NaN (NaN compared as NaN);
+   ``stratified_stats`` at the root's and the ``pallas`` backend's shapes,
+   on both sides of its change of layout (24 and 25 strata) and at 4,096
+   strata; one call of ``segment_sum`` and of
+   ``stratified_stats`` is one launch of its kernel and no other device
+   operation (a profiler trace); ``flash_attention`` at the
    reference test's shapes in f32 and bf16, at SmolLM-135M's prefill, at
    Qwen3-4B's heads and, in bf16, over S 16 to 2,048, head dims 32, 64
    and 128 and GQA ratios 1, 3 and 4, against its plain version
@@ -71,7 +78,11 @@ Drives ``src/repro_torch`` only (nothing of JAX or of the JAX package):
    and ``fused_select``'s times, beside their earlier designs';
    ``cms_update`` at (32000, 4, 8192), the
    bf16 kernel at head dim 32 and the f32 kernel at (1, 9, 3, 512, 64)
-   too), times
+   too; ``segment_sum`` at its three path shapes beside its serial floor,
+   the longest segment times one dependent f32 add as
+   ``tools/fadd_chain.py`` measures it, and ``stratified_stats`` at its
+   four path shapes and at 4,096 strata, each beside its earlier
+   design's time), times
    the WHS epochs with and without tenants and the SRS epochs, profiles
    one epoch of each WHS path, prints the analytics runs' items/s per
    engine and backend, and the prefill's ms per forward and tokens/s;
@@ -673,6 +684,110 @@ def check_slice3_kernels(dev) -> dict:
                                      max_abs(plain, card))
     print(f"segment_sum vs the CPU (rows, M, X) = {seg_cases}, int32 and "
           f"int64 ids: bitwise equal on order-sensitive sums")
+    for case, vals, ids, x in segment_edge_cases(rng):
+        for dt in (torch.int32, torch.int64):
+            plain = seg_ref.segment_sum(vals, ids.to(dt), x)
+            card = seg.segment_sum(vals.to(dev), ids.to(dt).to(dev), x)
+            torch.cuda.synchronize()
+            if not same_sums(plain, card):
+                fail(f"segment_sum differs from the CPU's item-order sums "
+                     f"on {case} ({tuple(vals.shape)} x {x}, ids {dt})")
+    print("segment_sum vs the CPU on a row longer than one chunk, one "
+          "segment holding every item, 1,500 segments, no id in range, "
+          "-0.0/inf/NaN, int32 and int64 ids: bitwise equal (NaN as NaN)")
+    return err
+
+
+def same_sums(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Bitwise, with NaN compared as NaN (the card's NaN has another
+    payload and sign than the CPU's)."""
+    a, b = a.detach().cpu(), b.detach().cpu()
+    nan = torch.isnan(a)
+    return (torch.equal(nan, torch.isnan(b))
+            and same_bits(torch.where(nan, 0.0, a), torch.where(nan, 0.0, b)))
+
+
+def segment_edge_cases(rng):
+    """(name, values, int64 ids, S) of the redesigned ``segment_sum``'s
+    edges: a row longer than one staging chunk, the longest chain (one
+    segment holds every item), more segments than the block's threads,
+    no id in [0, S), and -0.0, inf and NaN."""
+    v, i = ordered_inputs(rng, 1, 100_003, 4)
+    yield "a row longer than one chunk", v, i.long(), 4
+    v, _ = ordered_inputs(rng, 2, 20_000, 3)
+    yield "one segment holding every item", v, torch.ones(
+        (2, 20_000), dtype=torch.int64), 3
+    v, i = ordered_inputs(rng, 2, 30_000, 1_500)
+    yield "1,500 segments", v, i.long(), 1_500
+    v, i = ordered_inputs(rng, 2, 5_000, 8)
+    i = i.long()
+    yield "no id in range", v, torch.where(i % 2 == 0, i.abs() + 8,
+                                            -1 - i.abs()), 8
+    v, i = ordered_inputs(rng, 2, 9_000, 8)
+    i = torch.where(i.long() < 4, 4, i.long())
+    v[:, 0], i[:, 0] = -0.0, 0              # segment 0: -0.0 alone
+    v[:, 1], i[:, 1] = float("inf"), 1
+    v[:, 2], v[:, 3], i[:, 2:4] = float("inf"), float("-inf"), 2
+    v[:, 5], i[:, 5] = float("nan"), 3
+    yield "-0.0, inf and NaN", v, i, 8
+
+
+def one_kernel_a_call(fn, kernel: str, calls: int = 10) -> None:
+    """The device operations of ``calls`` calls of ``fn`` in one profiler
+    trace (``traced``; up to three traces where one loses events). Fails
+    unless they are ``calls`` launches of ``kernel`` and nothing else (no
+    fill, no copy, no second kernel)."""
+    for _ in range(3):
+        windows, _ = traced(fn, calls)
+        names = [[e.name for e in w] for w in windows]
+        if any(len(w) == calls for w in names):
+            break
+    if any(kernel not in n for w in names for n in w) or not any(
+            len(w) == calls for w in names):
+        fail(f"{kernel}: {calls} calls did not run as {calls} launches of "
+             f"its kernel alone: {names}")
+
+
+def check_stats_and_launches(dev) -> dict:
+    """Phase 2, the redesigned ``stratified_stats`` at the path's shapes
+    (the root's counts on ``pallas_fused`` and the ``pallas`` backend's
+    three launches a tick) and at 4,096 strata: counts bitwise, sums
+    within ``SUMS_RTOL``, the path's zero-valued call bitwise; then one
+    call of it and of ``segment_sum`` is one launch of its kernel and no
+    other device operation. Returns the largest absolute difference."""
+    from repro_torch.kernels.segment_sum import ops as seg
+    from repro_torch.kernels.stratified_stats import ops as ss, ref as ss_ref
+
+    rng = np.random.default_rng(17)
+    err = 0.0
+    # and both sides of the kernel's change of layout (24 and 25 strata)
+    shapes = ((2_200, 4),) + MASK_SHAPES + ((40_000, 24), (9_000, 25),
+                                            (3_000, 4_096))
+    for m, x in shapes:
+        _, strata, valid, _, _ = mask_inputs(rng, m, x, False)
+        vals = torch.from_numpy(rng.normal(100, 25, m).astype(np.float32))
+        for v in (vals, torch.zeros(m)):
+            p = ss_ref.stratified_stats(v, strata, valid, x)
+            k = ss.stratified_stats(v.to(dev), strata.to(dev), valid.to(dev),
+                                    x).cpu()
+            if not same_bits(p[:, 0], k[:, 0]):
+                fail(f"stratified_stats counts differ at M={m} X={x}")
+            if not torch.allclose(k[:, 1:], p[:, 1:], rtol=SUMS_RTOL,
+                                  atol=0.0):
+                fail(f"stratified_stats sums beyond rtol {SUMS_RTOL} at "
+                     f"M={m} X={x}")
+            err = max(err, max_abs(p, k))
+    print(f"stratified_stats vs plain at (M, X) = {shapes}: counts bitwise, "
+          f"sums within {SUMS_RTOL}")
+    _, strata, valid, _, _ = (a.to(dev) for a in mask_inputs(
+        rng, 44_032, 16, False))
+    z = torch.zeros(44_032, device=dev)
+    one_kernel_a_call(lambda: ss.stratified_stats(z, strata, valid, 16),
+                      "stratified_stats")
+    vals, ids = (a.to(dev) for a in ordered_inputs(rng, 4, 11_008, 4))
+    one_kernel_a_call(lambda: seg.segment_sum(vals, ids, 4), "segment_sum")
+    print("segment_sum and stratified_stats: each call one launch of its "
+          "kernel, no fill, no second launch (profiler trace)")
     return err
 
 
@@ -812,9 +927,19 @@ EARLIER_RATIO = {"cms_update": 17.3, SMOLLM_ATTN: 16.5, QWEN3_ATTN: 24.3,
 # The earlier designs' device ms per launch at the main path's shapes (the
 # same table): quantile_compact with one thread a target walking every
 # slot, fused_level_tick (level 0, level 1) and fused_select with one
-# block a node and tau by 31 bisection rounds.
+# block a node and tau by 31 bisection rounds; segment_sum with one warp a
+# (row, segment) walking the row, stratified_stats in two launches (block
+# partials, then a pass in block order) walking the strata 32 at a time
+# (tools/kernel_ab.py on an NVIDIA H100 80GB HBM3, 700.00 W).
 EARLIER_MS = {"quantile_compact": 0.0477, "fused_level_tick L0": 0.2171,
-              "fused_level_tick L1": 0.0673, "fused_select": 0.0622}
+              "fused_level_tick L1": 0.0673, "fused_select": 0.0622,
+              "segment_sum [1, 2200] x 4": 0.00960,
+              "segment_sum [4, 11008] x 4": 0.04038,
+              "segment_sum [1, 2200] x 32 int64": 0.00826,
+              "stratified_stats (2200, 4)": 0.00461,
+              "stratified_stats (44032, 16)": 0.00783,
+              "stratified_stats (4400, 8)": 0.00550,
+              "stratified_stats (3000, 4096)": 0.716}
 F32_ATTN = (1, 9, 3, 512, 64)
 # Kernel vs plain version: f32 only the order of the f32 sums and exp's
 # last bit differ; bf16 both round p at the same values (same kv blocks,
@@ -1360,6 +1485,8 @@ def main() -> None:
     err = check_kernels(dev)
     err.update(check_sketch_kernels(dev, path_shapes))
     err.update(check_slice3_kernels(dev))
+    err["stratified_stats"] = max(err["stratified_stats"],
+                                  check_stats_and_launches(dev))
     err["flash_attention"] = check_flash(dev)
     print(f"max abs differences vs plain: {err}")
     check_neyman_masks(dev, S)
@@ -1649,26 +1776,64 @@ def main() -> None:
           f"{[round(x, 5) for x in sm_each]} ms; bounds "
           f"{[round(b[0] * 1e3, 5) for b in sm_b]} us ({sm_b[0][1]})")
     # The ordered segment_sum at its path shapes: a root window's moments
-    # (2,200 items, 4 strata) and a neyman level's stds (4 x 11,008).
-    # Bound: value and id (8 B) per item in, the sums out; one add per
-    # item. Plain = library = index_add_ (float atomics, unordered).
-    seg_cases = [[a.to(dev) for a in ordered_inputs(rng, r, mm, 4)]
-                 for r, mm in ((1, 2200), (4, 11008))]
-    seg_ms = [device_ms(lambda a=a: segsum.segment_sum(*a, 4),
+    # (2,200 items, 4 strata), a neyman level's stds (4 x 11,008) and a
+    # tenant's histogram (32 bins, int64 ids). Bound: value and id per item
+    # in, the sums out; one add per item. Its serial floor: the longest
+    # segment's items times one dependent f32 add (tools/fadd_chain.py).
+    # Plain = library = index_add_ (float atomics, unordered).
+    import importlib.util
+
+    probe = Path(__file__).resolve().parent / "tools" / "fadd_chain.py"
+    spec_ = importlib.util.spec_from_file_location("fadd_chain", probe)
+    fadd_chain = importlib.util.module_from_spec(spec_)
+    spec_.loader.exec_module(fadd_chain)
+    chain = fadd_chain.measure(dev)
+    print(f"dependent f32 add (tools/fadd_chain.py): "
+          f"{chain['add_cycles']:.3f} cycles, {chain['add_ns']:.4f} ns; "
+          f"folded from shared memory {chain['fold_cycles']:.3f} cycles, "
+          f"{chain['fold_ns']:.4f} ns an item")
+    seg_shapes = ((1, 2200, 4, torch.int32), (4, 11008, 4, torch.int32),
+                  (1, 2200, 32, torch.int64))
+    seg_cases = []
+    for r, mm, x, dt in seg_shapes:
+        v, i = ordered_inputs(rng, r, mm, x)
+        seg_cases.append((v.to(dev), i.to(dt).to(dev), x))
+    seg_ms = [device_ms(lambda a=a: segsum.segment_sum(*a),
                         name="segment_sum") for a in seg_cases]
-    seg_plain = [device_ms(lambda a=a: segsum_ref.segment_sum(*a, 4), 5)
+    seg_plain = [device_ms(lambda a=a: segsum_ref.segment_sum(*a), 5)
                  for a in seg_cases]
-    seg_b = [bound(r * mm * 8 + r * 16, r * mm)
-             for r, mm in ((1, 2200), (4, 11008))]
-    print(f"segment_sum (ordered, repair kernel, no TPU counterpart): "
-          f"device {seg_ms[0]:.4f} ms at [1, 2200] x 4 (6 launches per "
-          f"root window), {seg_ms[1]:.4f} ms at [4, 11008] x 4 (neyman, "
-          f"level 0); bounds {seg_b[0][0]:.6f}, {seg_b[1][0]:.6f} ms "
-          f"({seg_b[0][1]}); plain = library (index_add_, atomics) "
-          f"{seg_plain[0]:.4f}, {seg_plain[1]:.4f} ms; launches on the "
-          f"level-pallas driver run "
+    seg_wall = [loop_ms(lambda a=a: segsum.segment_sum(*a))
+                for a in seg_cases]
+    seg_b = [bound(r * mm * (4 + dt.itemsize) + r * x * 4, r * mm)
+             for r, mm, x, dt in seg_shapes]
+    for (r, mm, x, dt), (v, i, _), ms, pl, wl, b in zip(
+            seg_shapes, seg_cases, seg_ms, seg_plain, seg_wall, seg_b):
+        longest = int(max(((i == k).sum(-1).max() for k in range(x)),
+                          default=0))
+        name = f"segment_sum [{r}, {mm}] x {x}" + (
+            " int64" if dt == torch.int64 else "")
+        print(f"{name}: device {ms:.5f} ms/launch (wrapper loop {wl:.4f} "
+              f"ms; earlier design {EARLIER_MS[name]}), bound "
+              f"{b[0]:.6f} ms ({b[1]}), serial floor {longest} adds x "
+              f"{chain['add_ns']:.4f} ns = "
+              f"{longest * chain['add_ns'] * 1e-6:.5f} ms; plain = library "
+              f"(index_add_, atomics) {pl:.5f} ms")
+    print(f"segment_sum launches on the level-pallas driver run "
           f"{driver['level pallas'][1]['segment_sum']}; max abs err vs the "
           f"CPU {err['segment_sum']}")
+    # stratified_stats at the pallas backend's three launches a tick and
+    # off the path at 4,096 strata (the root's is t["stratified_stats"]):
+    # zeros as values, as the backends pass.
+    for mm, x in MASK_SHAPES + ((3000, 4096),):
+        _, st, ok, _, _ = (a.to(dev) for a in mask_inputs(rng, mm, x, False))
+        z = torch.zeros(mm, device=dev)
+        ms = device_ms(lambda: ss.stratified_stats(z, st, ok, x),
+                       name="stratified_stats")
+        b = bound(mm * 9 + x * 12, 4 * int(ok.sum()))
+        print(f"stratified_stats ({mm}, {x}): device {ms:.5f} "
+              f"ms/launch (earlier design "
+              f"{EARLIER_MS[f'stratified_stats ({mm}, {x})']}), bound "
+              f"{b[0]:.6f} ms ({b[1]})")
     print(f"fused_level_tick device time per launch: L0 [{n0}, {cap0}] "
           f"{ms_l0:.4f} ms (bound {b_l0[0] * 1e3:.3f} us, {b_l0[1]}; "
           f"earlier design {EARLIER_MS['fused_level_tick L0']}), "
@@ -1686,6 +1851,9 @@ def main() -> None:
           f"{EARLIER_RATIO['quantile_compact']}x)")
     t["segment_sum"] = (seg_ms[0], seg_plain[0], seg_plain[0])
     bounds["segment_sum"] = seg_b[0]
+    print(f"stratified_stats root ({m}, 4): device "
+          f"{t['stratified_stats'][0]:.5f} ms/launch (earlier design "
+          f"{EARLIER_MS['stratified_stats (2200, 4)']})")
     # flash_attention at SmolLM-135M's prefill (the main path's launch) and
     # Qwen3-4B's heads at S 4096, bf16; library: SDPA (causal, GQA), timed
     # here only.

@@ -45,10 +45,12 @@ def segment_sum(values: torch.Tensor, seg: torch.Tensor,
     lead = values.shape[:-1]
     m = values.shape[-1]
     rows = values.numel() // m if m else 0
-    out = torch.zeros(lead + (num_segments,), dtype=torch.float32,
-                      device=values.device)
     if rows == 0 or num_segments == 0:
-        return out
+        return torch.zeros(lead + (num_segments,), dtype=torch.float32,
+                           device=values.device)
+    # The kernel writes every element: no fill before it.
+    out = torch.empty(lead + (num_segments,), dtype=torch.float32,
+                      device=values.device)
     # int32 and int64 ids go in as they are (the kernel skips ids outside
     # [0, S)); narrower integer ids widen to int32 without loss.
     if seg.dtype not in (torch.int32, torch.int64):

@@ -13,12 +13,9 @@ import torch
 from repro_torch.kernels import LAUNCHES, _build
 from repro_torch.kernels.stratified_stats import ref
 
-# Items per block of the first pass (256 threads × 8 items each); must
-# match ``TILE`` in csrc/stratified_stats.cu.
-TILE = 2048
-# The partial pass walks the strata 32 at a time, each a shuffle
-# reduction over the tile, so its cost grows with X; a flattened level of
-# the ``pallas`` backend has nodes × strata of them.
+# Any X up to this: the kernel keeps a row of shared memory per thread
+# (up to 24 strata) or per warp (above) and stratum, and takes fewer
+# threads where X rows do not fit (128 at 4,096 strata).
 MAX_STRATA = 4096
 
 
@@ -27,7 +24,7 @@ def _lib():
     fn = lib.stratified_stats_launch
     if fn.argtypes is None:
         P, I = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [P, P, P, I, I, P, P, P, P]
+        fn.argtypes = [P, P, P, I, I, P, P]
         fn.restype = I
     return lib
 
@@ -36,7 +33,8 @@ def stratified_stats(values: torch.Tensor, strata: torch.Tensor,
                      mask: torch.Tensor, num_strata: int) -> torch.Tensor:
     """f32[X, 3] per-stratum (count, Σx, Σx²) over ``mask``ed items.
     Counts are exact; on the card Σx and Σx² are summed in a fixed order
-    (deterministic from run to run, not the CPU's item order)."""
+    that depends only on (M, X) (deterministic from run to run, not the
+    CPU's item order), in one launch."""
     if values.device.type == "cpu":
         return ref.stratified_stats(values, strata, mask, num_strata)
     if values.device.type != "cuda":
@@ -57,18 +55,14 @@ def stratified_stats(values: torch.Tensor, strata: torch.Tensor,
         if t.device != values.device:
             raise ValueError("stratified_stats: inputs on different devices")
     values, strata, mask = (t.contiguous() for t in (values, strata, mask))
-    blocks = max(-(-m // TILE), 1)
-    sums = torch.empty((blocks, num_strata, 2), dtype=torch.float32,
-                       device=values.device)
-    cnts = torch.empty((blocks, num_strata), dtype=torch.int32,
-                       device=values.device)
+    # The kernel writes every element; it needs no scratch.
     out = torch.empty((num_strata, 3), dtype=torch.float32,
                       device=values.device)
     lib = _lib()
     P = _build.ptr
     rc = lib.stratified_stats_launch(
-        P(values), P(strata), P(mask), m, num_strata, P(sums), P(cnts),
-        P(out), _build.stream_of(values))
+        P(values), P(strata), P(mask), m, num_strata, P(out),
+        _build.stream_of(values))
     _build.check(lib, rc, "stratified_stats")
     LAUNCHES["stratified_stats"] += 1
     return out

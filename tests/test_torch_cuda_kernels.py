@@ -390,10 +390,137 @@ def test_segment_sum_kernel_matches_cpu_order(cuda_device, rows, m, x):
           tseg_ref.segment_sum(torch.ones_like(ids), ids, x).numpy())
 
 
+def _same_sums(got, want):
+    """Bitwise, with NaN compared as NaN (the card's NaN is not the CPU's
+    payload or sign)."""
+    got, want = np.asarray(got), np.asarray(want)
+    nan = np.isnan(want)
+    np.testing.assert_array_equal(np.isnan(got), nan)
+    _bits(np.where(nan, 0.0, got).astype(np.float32),
+          np.where(nan, 0.0, want).astype(np.float32))
+
+
+def _segment_case(case, rng):
+    """(values, int64 ids, S) of the redesign's edge cases."""
+    if case == "longer_than_a_chunk":
+        vals, ids = _ordered_inputs(rng, 1, 100_003, 4)
+        return vals, ids, 4
+    if case == "one_segment_holds_all":
+        vals, _ = _ordered_inputs(rng, 2, 20_000, 3)
+        return vals, torch.ones((2, 20_000), dtype=torch.int64), 3
+    if case == "more_segments_than_threads":
+        vals, ids = _ordered_inputs(rng, 2, 30_000, 1_500)
+        return vals, ids, 1_500
+    if case == "every_id_out_of_range":
+        vals, ids = _ordered_inputs(rng, 2, 5_000, 8)
+        return vals, torch.where(ids % 2 == 0, ids.abs() + 8,
+                                 -1 - ids.abs()), 8
+    vals, ids = _ordered_inputs(rng, 2, 9_000, 8)     # special values
+    ids = torch.where(ids < 4, 4, ids)
+    vals[:, 0], ids[:, 0] = -0.0, 0          # segment 0: -0.0 alone
+    vals[:, 1], ids[:, 1] = float("inf"), 1
+    vals[:, 2], vals[:, 3] = float("inf"), float("-inf")
+    ids[:, 2:4] = 2                          # inf + -inf: NaN
+    vals[:, 5], ids[:, 5] = float("nan"), 3
+    return vals, ids, 8
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ids_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("case", ["longer_than_a_chunk",
+                                  "one_segment_holds_all",
+                                  "more_segments_than_threads",
+                                  "every_id_out_of_range", "special_values"])
+def test_segment_sum_kernel_on_edge_cases(cuda_device, case, ids_dtype):
+    """Rows longer than one staging chunk, the longest chain (one segment
+    holds every item), more segments than the block has threads, no id
+    in range, and -0.0, inf and NaN: bitwise the CPU's item order."""
+    vals, ids, x = _segment_case(case, np.random.default_rng(99))
+    ids = ids.to(ids_dtype)
+    want = tseg_ref.segment_sum(vals, ids, x)
+    got = tseg.segment_sum(vals.to(cuda_device), ids.to(cuda_device), x)
+    torch.cuda.synchronize()
+    _same_sums(got.cpu().numpy(), want.numpy())
+
+
+# The root's counts on ``pallas_fused`` and the ``pallas`` backend's three
+# launches a tick (level 0 flattened, level 1, the root); then both sides
+# of the kernel's change of layout (a row a thread up to 24 strata, a row
+# a warp above), the former on a full cluster of 8 CTAs.
+STATS_SHAPES = [(2_200, 4), (44_032, 16), (4_400, 8), (40_000, 24),
+                (9_000, 25)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,x", STATS_SHAPES)
+def test_stratified_stats_kernel_at_path_shapes(cuda_device, m, x):
+    vals, strata, valid, _, _, _ = _level(m * x, 1, m, x, 0.8, False)
+    t = [torch.from_numpy(a[0]) for a in (vals, strata, valid)]
+    want = tss_ref.stratified_stats(*t, x).numpy()
+    got = tss.stratified_stats(*(a.to(cuda_device) for a in t),
+                               x).cpu().numpy()
+    _bits(got[:, 0], want[:, 0], "count")
+    np.testing.assert_allclose(got[:, 1:], want[:, 1:], rtol=SUMS_RTOL)
+    # the path's own call: zeros as values, counts only
+    zeros = torch.zeros(m)
+    want0 = tss_ref.stratified_stats(zeros, *t[1:], x).numpy()
+    got0 = tss.stratified_stats(*(a.to(cuda_device) for a in
+                                  (zeros, *t[1:])), x).cpu().numpy()
+    _bits(got0, want0)
+
+
+def _device_ops(fn, calls=10):
+    """Names of the device operations (kernels, fills, copies) that
+    ``calls`` calls of ``fn`` run, from a profiler trace, after a warm-up
+    call. A trace can lose events near its start and end, so the calls
+    lie between two runs of spin kernels (left out of the list), and a
+    trace whose count is not a multiple of ``calls`` is taken again."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(8):
+                torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            for _ in range(8):
+                torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+        ops = [e.name for e in prof.events()
+               if e.device_type == DeviceType.CUDA
+               and "spin_kernel" not in e.name]
+        if ops and len(ops) % calls == 0:
+            return ops
+    return ops
+
+
+@pytest.mark.cuda
+def test_each_call_is_one_kernel_and_no_fill(cuda_device):
+    """``segment_sum`` allocates its output empty (the kernel writes every
+    element) and ``stratified_stats`` takes one launch and no scratch:
+    each call is exactly one device operation, its own kernel."""
+    rng = np.random.default_rng(5)
+    vals, ids = (a.to(cuda_device) for a in _ordered_inputs(rng, 4, 11_008,
+                                                             4))
+    ops = _device_ops(lambda: tseg.segment_sum(vals, ids, 4))
+    assert len(ops) == 10 and all("segment_sum" in n for n in ops), ops
+    _, strata, valid, _, _, _ = _level(7, 1, 44_032, 16, 0.8, False)
+    z = torch.zeros(44_032, device=cuda_device)
+    s, k = (torch.from_numpy(a[0]).to(cuda_device) for a in (strata, valid))
+    ops = _device_ops(lambda: tss.stratified_stats(z, s, k, 16))
+    assert len(ops) == 10 and all("stratified_stats" in n for n in ops), ops
+
+
 @pytest.mark.cuda
 def test_pallas_backend_and_neyman_launch_their_kernels(cuda_device):
     """A flattened level through the ``pallas`` backend: one
-    ``stratified_stats`` call (2 launches), one ``sample_mask`` launch,
+    ``stratified_stats`` launch, one ``sample_mask`` launch,
     and with neyman the stds' two float sums through ``segment_sum``;
     bitwise the CPU run."""
     from repro_torch.core import whs as twhs

@@ -1,9 +1,12 @@
 """The port's kernels: plain versions against the reference's Pallas
 kernels, and the wrappers' dispatch. The reference's kernels run in
 Pallas interpret mode, as ``tests/test_fused_tick.py`` runs them. The
-CUDA kernels themselves are held against these plain versions in
+ordered ``segment_sum``'s plain version is held bitwise against the
+reference's jitted scatter-add (``repro/core/sampling.py``). The CUDA
+kernels themselves are held against these plain versions in
 ``tests/test_torch_cuda_kernels.py``.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -15,6 +18,7 @@ from repro.kernels.stratified_stats import ops as jss  # noqa: E402
 from repro_torch.kernels import LAUNCHES, _build  # noqa: E402
 from repro_torch.kernels.fused_level_tick import ops as tft  # noqa: E402
 from repro_torch.kernels.fused_level_tick import ref as tft_ref  # noqa: E402
+from repro_torch.kernels.segment_sum import ref as tseg_ref  # noqa: E402
 from repro_torch.kernels.stratified_stats import ops as tss  # noqa: E402
 from repro_torch.kernels.stratified_stats import ref as tss_ref  # noqa: E402
 
@@ -170,6 +174,90 @@ def test_stratified_stats_plain_matches_pallas(m, x):
     _bits(got, np.asarray(jss.stratified_stats(
         jnp.asarray(vals[0]), jnp.asarray(strata[0]), jnp.asarray(valid[0]),
         x, impl="ref")))
+
+
+@pytest.mark.parametrize("m,x", [(44032, 16), (3000, 4096)])
+def test_stratified_stats_plain_matches_reference_oracle(m, x):
+    """The ``pallas`` backend's level 0 (4 nodes x 4 strata, flattened) and
+    a wide level: the plain version is bitwise the reference's jitted
+    oracle (item-order scatters)."""
+    vals, strata, valid, _, _, _ = _level(m + x, 1, m, x, 0.8, False)
+    got = tss.stratified_stats(*(torch.from_numpy(a[0]) for a in (
+        vals, strata, valid)), x).numpy()
+    want = np.asarray(jss.stratified_stats(
+        jnp.asarray(vals[0]), jnp.asarray(strata[0]), jnp.asarray(valid[0]),
+        x, impl="ref"))
+    _bits(got, want)
+
+
+@jax.jit
+def _scatter_rows(x, seg, s):
+    """The reference's scatter (``repro/core/sampling.py:70``) per row:
+    ids outside ``[0, S)`` go to the spare slot ``S``, which is cut off;
+    ``s`` is a zero vector of length ``S`` (so jit keys on ``S``)."""
+    n = s.shape[0]
+
+    def one(xr, sr):
+        ok = (sr >= 0) & (sr < n)
+        idx = jnp.where(ok, sr, n)
+        return jnp.zeros((n + 1,), jnp.float32).at[idx].add(xr)[:n]
+
+    return jax.vmap(one)(x, seg)
+
+
+def _order_sensitive(rng, rows, m, x):
+    """Mixed magnitudes 1e-3 to 1e6 with alternating signs, so any other
+    order of a segment's adds changes its f32 sum; ids in [-2, x + 2)."""
+    mag = 10.0 ** rng.uniform(-3, 6, (rows, m))
+    sign = np.where(np.arange(m) % 2 == 0, 1.0, -1.0)
+    vals = (mag * sign).astype(np.float32)
+    ids = rng.integers(-2, x + 2, (rows, m))
+    return vals, ids
+
+
+def _same_sums(got, want):
+    """Bitwise, with NaN compared as NaN (payloads and signs of NaN differ
+    between the two libraries)."""
+    got, want = np.asarray(got), np.asarray(want)
+    nan = np.isnan(want)
+    np.testing.assert_array_equal(np.isnan(got), nan)
+    _bits(np.where(nan, 0.0, got).astype(np.float32),
+          np.where(nan, 0.0, want).astype(np.float32))
+
+
+@pytest.mark.parametrize("rows,m,x,ids", [
+    (1, 2200, 4, np.int32), (4, 11008, 4, np.int32),
+    (1, 44032, 16, np.int64), (1, 100003, 1, np.int32)])
+def test_segment_sum_plain_matches_reference_scatter(rows, m, x, ids):
+    rng = np.random.default_rng(rows * m + x)
+    vals, seg = _order_sensitive(rng, rows, m, x)
+    seg = seg.astype(ids)
+    got = tseg_ref.segment_sum(torch.from_numpy(vals), torch.from_numpy(seg),
+                               x)
+    want = _scatter_rows(jnp.asarray(vals), jnp.asarray(seg.astype(np.int32)),
+                         jnp.zeros((x,), jnp.float32))
+    _same_sums(got.numpy(), want)
+
+
+@pytest.mark.parametrize("case", ["out_of_range", "specials"])
+def test_segment_sum_plain_matches_reference_on_edge_values(case):
+    rng = np.random.default_rng(17)
+    vals, seg = _order_sensitive(rng, 2, 3000, 8)
+    if case == "out_of_range":
+        seg = np.where(np.arange(3000) % 5 == 0, seg + 1000, seg - 9)
+    else:
+        # -0.0 alone in segment 0 (its sum is +0.0 from the 0.0 start),
+        # an inf in segment 1, +inf and -inf in segment 2 (NaN), a NaN in 3
+        seg = np.where(seg < 4, 4, seg)
+        seg[:, 0], vals[:, 0] = 0, -0.0
+        seg[:, 1], vals[:, 1] = 1, np.inf
+        seg[:, 2:4], vals[:, 2:4] = 2, [np.inf, -np.inf]
+        seg[:, 5], vals[:, 5] = 3, np.nan
+    got = tseg_ref.segment_sum(torch.from_numpy(vals), torch.from_numpy(seg),
+                               8)
+    want = _scatter_rows(jnp.asarray(vals), jnp.asarray(seg.astype(np.int32)),
+                         jnp.zeros((8,), jnp.float32))
+    _same_sums(got.numpy(), want)
 
 
 def test_cpu_tensors_take_the_plain_version_and_count_no_launch():

@@ -238,9 +238,12 @@ def test_port_never_imports_jax_or_the_reference():
                 "configs/registry.py", "configs/smollm_135m.py"):
         assert REPO / "src" / "repro_torch" / mod in files, mod
     files += [REPO / "chip_smoke.py", REPO / "examples" / "quickstart_torch.py",
-              REPO / "examples" / "taxi_analytics_torch.py",
-              REPO / "tools" / "flash_planted_faults.py",
-              REPO / "tools" / "flash_rounding_check.py"]
+              REPO / "examples" / "taxi_analytics_torch.py"]
+    tools = sorted((REPO / "tools").glob("*.py"))
+    for tool in ("flash_planted_faults.py", "flash_rounding_check.py",
+                 "fused_tick_phases.py", "kernel_ab.py", "fadd_chain.py"):
+        assert REPO / "tools" / tool in tools, tool
+    files += tools
     assert len(files) > 20
     for path in files:
         for mod in _imports(path):

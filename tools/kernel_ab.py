@@ -1,6 +1,6 @@
-"""Device times of ``fused_level_tick``, ``fused_select`` and
-``quantile_compact`` for two source trees of the port, in one call on one
-CUDA card.
+"""Device times of ``fused_level_tick``, ``fused_select``,
+``quantile_compact``, ``segment_sum`` and ``stratified_stats`` for two
+source trees of the port, in one call on one CUDA card.
 
     python3 tools/kernel_ab.py OTHER_TREE
 
@@ -10,10 +10,15 @@ of its own, in the order other, this, this, other, and builds its kernels
 into its own ``build/``. The inputs are ``chip_smoke.py``'s phase-4 inputs
 (this tree's generators, seed 7): the testbed's level 0 ``[4, 11008]`` and
 level 1 ``[2, 2200]`` ticks and the root's selection over 2,200 items (4
-strata, budget 1,100), and ``quantile_compact`` at one root window's 20
-launch shapes of the tenant path. Times are ``chip_smoke.device_ms``
-(the median of profiler traces), per launch. Prints one JSON line per run
-and the card's name and power limit.
+strata, budget 1,100), ``quantile_compact`` at one root window's 20
+launch shapes of the tenant path, ``segment_sum`` on order-sensitive sums
+at ``[1, 2200] x 4`` (a root window's moments), ``[4, 11008] x 4`` (a
+neyman level's stds) and ``[1, 2200] x 32`` with int64 ids (a tenant's
+histogram), and ``stratified_stats`` at the root's ``(2200, 4)`` on
+``pallas_fused``, at ``chip_smoke.MASK_SHAPES`` (the ``pallas``
+backend's three launches a tick) and at ``(3000, 4096)``. Times are
+``chip_smoke.device_ms`` (the median of profiler traces), per launch.
+Prints one JSON line per run and the card's name and power limit.
 """
 from __future__ import annotations
 
@@ -33,7 +38,9 @@ def measure(tree: Path, path_shapes) -> dict:
     sys.path.insert(0, str(ROOT))
     import chip_smoke as C
     from repro_torch.kernels.fused_level_tick import ops as ft, ref as ft_ref
+    from repro_torch.kernels.segment_sum import ops as seg
     from repro_torch.kernels.sketch_update import ops as sk
+    from repro_torch.kernels.stratified_stats import ops as ss
 
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(7)
@@ -49,6 +56,26 @@ def measure(tree: Path, path_shapes) -> dict:
         for args in qc:
             sk.quantile_compact(*args)
 
+    sums = {}
+    for rows, m, x, ids in ((1, 2200, 4, torch.int32),
+                            (4, 11008, 4, torch.int32),
+                            (1, 2200, 32, torch.int64)):
+        v, s = (a.to(dev) for a in C.ordered_inputs(rng, rows, m, x))
+        s = s.to(ids)
+        name = f"segment_sum [{rows}, {m}] x {x}" + (
+            " int64" if ids == torch.int64 else "")
+        sums[name] = C.device_ms(
+            lambda v=v, s=s, x=x: seg.segment_sum(v, s, x))
+    zeros = torch.zeros(2200, device=dev)
+    stats = {"stratified_stats root (2200, 4)": C.device_ms(
+        lambda: ss.stratified_stats(zeros, root[1][0], root[2][0], 4))}
+    for m, x in C.MASK_SHAPES + ((3000, 4096),):
+        _, strata, valid, _, _ = (a.to(dev) for a in C.mask_inputs(
+            rng, m, x, False))
+        z = torch.zeros(m, device=dev)
+        stats[f"stratified_stats ({m}, {x})"] = C.device_ms(
+            lambda z=z, s=strata, k=valid, x=x: ss.stratified_stats(z, s, k,
+                                                                    x))
     return {
         "tree": str(tree),
         "fused_level_tick L0": C.device_ms(
@@ -57,6 +84,7 @@ def measure(tree: Path, path_shapes) -> dict:
             lambda: ft.fused_level_tick(*l1, size, 4, 1100)),
         "fused_select": C.device_ms(lambda: ft.fused_select(*sel)),
         "quantile_compact": C.device_ms(qc_all) / len(qc),
+        **sums, **stats,
     }
 
 
