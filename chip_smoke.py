@@ -24,15 +24,18 @@ Drives ``src/repro_torch`` only (nothing of JAX or of the JAX package):
    multiple of its tile, and on intervals built as the sketch builds them
    (``blocked_cumsum``: targets in two slots, a lone ``-0.0``, up to
    65,536 slots and 640 targets); ``sample_mask`` at the three shapes of the
-   ``pallas`` path, with ties and sentinels, and at M = 1, 333, 44,033;
+   ``pallas`` path, with ties and sentinels, and at M = 1 to 44,033 (the
+   vector path's tail), X = 1 to 6,144, on views at storage offsets 1-3
+   items (its scalar path) and on NaN priorities and -0.0 against
+   tau = +0.0;
    the ordered ``segment_sum`` against the CPU's ``index_add_`` on sums
    whose value depends on their order, also on a row longer than one
    staging chunk, one segment holding every item, 1,500 segments, no id
    in range and -0.0, inf and NaN (NaN compared as NaN);
    ``stratified_stats`` at the root's and the ``pallas`` backend's shapes,
    on both sides of its change of layout (24 and 25 strata) and at 4,096
-   strata; one call of ``segment_sum`` and of
-   ``stratified_stats`` is one launch of its kernel and no other device
+   strata; one call of ``segment_sum``, of ``stratified_stats`` and of
+   ``sample_mask`` is one launch of its kernel and no other device
    operation (a profiler trace); ``flash_attention`` at the
    reference test's shapes in f32 and bf16, at SmolLM-135M's prefill, at
    Qwen3-4B's heads and, in bf16, over S 16 to 2,048, head dims 32, 64
@@ -82,7 +85,11 @@ Drives ``src/repro_torch`` only (nothing of JAX or of the JAX package):
    the longest segment times one dependent f32 add as
    ``tools/fadd_chain.py`` measures it, and ``stratified_stats`` at its
    four path shapes and at 4,096 strata, each beside its earlier
-   design's time), times
+   design's time; ``sample_mask`` at its three path shapes beside its
+   first design's, with the span from the end of tau's producer to the end
+   of the mask, queued on the device (with a fresh W as the select makes,
+   and with W made once) and in ``PallasBackend.select`` as called, and
+   the launch floor of ``tools/launch_floor.py``), times
    the WHS epochs with and without tenants and the SRS epochs, profiles
    one epoch of each WHS path, prints the analytics runs' items/s per
    engine and backend, and the prefill's ms per forward and tokens/s;
@@ -313,6 +320,45 @@ def device_ms(fn, iters: int = 20, name: str | None = None) -> float:
     if name:
         SPREAD.setdefault(name, []).append(([], len(seen), ms))
     return ms
+
+
+SPIN_CYCLES = 20_000_000   # ≈ 10 ms of SM clock: longer than the host
+                           # takes to queue a span's calls
+
+
+def span_ms(fn, kernel: str, back: int, calls: int = 20) -> float:
+    """The span from the end of the device operation ``back`` places
+    before a launch of ``kernel`` to the end of that launch, in ms: the
+    median over ``calls`` calls of ``fn`` in each of ``TRACES`` profiler
+    traces. The calls are queued behind a spin kernel, so the device
+    never waits for the host between them, and a launch that starts
+    before its predecessor ends (a programmatic dependent) is not paid
+    twice, as a sum of durations would pay it. A call with a host
+    synchronisation inside drains that queue, and its span then holds
+    the host's issue time."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    spans = []
+    for _ in range(TRACES):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(SPIN_CYCLES)
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        ev = sorted((e for e in prof.events()
+                     if e.device_type == DeviceType.CUDA
+                     and "spin_kernel" not in e.name),
+                    key=lambda e: e.time_range.start)
+        for i in range(back, len(ev)):
+            if kernel in ev[i].name and all(kernel not in e.name
+                                            for e in ev[i - back:i]):
+                spans.append(ev[i].time_range.end
+                             - ev[i - back].time_range.end)
+    if not spans:
+        fail(f"span_ms: no launch of {kernel} in {TRACES} traces")
+    return statistics.median(spans) / 1e3
 
 
 # --------------------------------------------------------------- inputs --
@@ -632,6 +678,43 @@ def mask_inputs(rng, m, x, ties):
     return t + [tau, w]
 
 
+def nan_and_signed_zero(args):
+    """``mask_inputs``' arguments with NaN priorities (never kept) and,
+    in one stratum whose tau is set to +0.0, priorities of -0.0 (kept)
+    and +0.0."""
+    u, s, v, tau, w = (a.clone() for a in args)
+    j = tau.shape[0] // 2
+    tau[j] = 0.0
+    mine = torch.nonzero(s == j).flatten()
+    u[mine[0::2]] = -0.0
+    u[mine[1::4]] = 0.0
+    u[3::11] = float("nan")
+    return [u, s, v, tau, w]
+
+
+def offset_view(a, off, dev):
+    """``a`` on ``dev`` as a view at storage offset ``off`` items."""
+    return torch.empty(off + a.shape[0], dtype=a.dtype,
+                       device=dev)[off:].copy_(a)
+
+
+def select_tail(mask, u, s, v, tau, fresh_w=True):
+    """One call of the end of ``PallasBackend.select`` as the device sees
+    it: τ's last operation (a ``torch.where``), the fill of W and the
+    ``mask`` launch, four device operations; τ comes out as given. With
+    ``span_ms(..., back=2)`` it gives the τ producer → mask span. With
+    ``fresh_w=False`` W is made once, outside the call: three operations,
+    and ``back=1``."""
+    none, cut = tau == 2.0, tau != -1.0
+    ones = torch.ones(tau.shape, device=tau.device)
+
+    def call():
+        t = torch.where(none, 2.0, torch.where(cut, tau, -1.0))
+        return mask(u, s, v, t, torch.ones(tau.shape, device=tau.device)
+                    if fresh_w else ones)
+    return call
+
+
 def ordered_inputs(rng, rows, m, x):
     """Values of mixed magnitude (1e-3 to 1e6) with alternating signs, so
     any reordering of a segment's adds changes its f32 sum, and int32 ids
@@ -652,19 +735,35 @@ def check_slice3_kernels(dev) -> dict:
 
     rng = np.random.default_rng(13)
     err = {"sample_mask": 0.0, "segment_sum": 0.0}
-    cases = [(m, x, ties) for m, x in MASK_SHAPES for ties in (False, True)]
-    cases += [(1, 4, False), (333, 4, True), (44_033, 16, True)]
-    for m, x, ties in cases:
+    # (M, X, ties, storage offset of u, s and valid, NaN and -0.0): the
+    # path's shapes, then the vector path's tail (M mod 4), one stratum
+    # and the most, views off 16 bytes (the kernel's scalar path) and NaN
+    # priorities with -0.0 against tau = +0.0.
+    cases = [(m, x, ties, 0, False) for m, x in MASK_SHAPES
+             for ties in (False, True)]
+    cases += [(1, 4, False, 0, False), (333, 4, True, 0, False),
+              (44_033, 16, True, 0, False)]
+    cases += [(m, x, m % 2 == 1, 0, False) for m, x in (
+        (2, 4), (3, 1), (5, 3), (7, 2), (1_023, 16), (2_200, 1),
+        (44_032, 6_144))]
+    cases += [(m, x, False, off, True) for m, x in ((1_023, 4), (44_033, 16))
+              for off in (1, 2, 3)]
+    cases += [(44_032, 16, True, 0, True), (5, 1, False, 0, True)]
+    for m, x, ties, off, special in cases:
         args = mask_inputs(rng, m, x, ties)
+        if special:
+            args = nan_and_signed_zero(args)
         plain = sm_ref.sample_mask(*args)
-        card = sm.sample_mask(*(a.to(dev) for a in args))
+        card = sm.sample_mask(*(offset_view(a, off, dev) for a in args[:3]),
+                              *(a.to(dev) for a in args[3:]))
         torch.cuda.synchronize()
         for p, k in zip(plain, card):
             if not same_bits(p, k):
                 fail(f"sample_mask differs from the plain version at M={m} "
-                     f"X={x} ties={ties}")
+                     f"X={x} ties={ties} offset={off} NaN/-0.0={special}")
             err["sample_mask"] = max(err["sample_mask"], max_abs(p, k))
-    print(f"sample_mask vs plain at (M, X, ties) = {cases}: bitwise equal")
+    print(f"sample_mask vs plain at (M, X, ties, offset, NaN/-0.0) = "
+          f"{cases}: bitwise equal")
     seg_cases = [(1, 1, 1), (1, 2_200, 4), (4, 11_008, 4), (2, 2_200, 4),
                  (1, 44_032, 16), (2, 4_400, 64), (1, 2_200, 64),
                  (3, 777, 33)]
@@ -753,8 +852,10 @@ def check_stats_and_launches(dev) -> dict:
     (the root's counts on ``pallas_fused`` and the ``pallas`` backend's
     three launches a tick) and at 4,096 strata: counts bitwise, sums
     within ``SUMS_RTOL``, the path's zero-valued call bitwise; then one
-    call of it and of ``segment_sum`` is one launch of its kernel and no
-    other device operation. Returns the largest absolute difference."""
+    call of it, of ``segment_sum`` and of ``sample_mask`` is one launch of
+    its kernel and no other device operation. Returns the largest
+    absolute difference."""
+    from repro_torch.kernels.sample_mask import ops as sm
     from repro_torch.kernels.segment_sum import ops as seg
     from repro_torch.kernels.stratified_stats import ops as ss, ref as ss_ref
 
@@ -786,8 +887,10 @@ def check_stats_and_launches(dev) -> dict:
                       "stratified_stats")
     vals, ids = (a.to(dev) for a in ordered_inputs(rng, 4, 11_008, 4))
     one_kernel_a_call(lambda: seg.segment_sum(vals, ids, 4), "segment_sum")
-    print("segment_sum and stratified_stats: each call one launch of its "
-          "kernel, no fill, no second launch (profiler trace)")
+    args = [a.to(dev) for a in mask_inputs(rng, 44_032, 16, False)]
+    one_kernel_a_call(lambda: sm.sample_mask(*args), "sample_mask")
+    print("segment_sum, stratified_stats and sample_mask: each call one "
+          "launch of its kernel, no fill, no second launch (profiler trace)")
     return err
 
 
@@ -939,7 +1042,11 @@ EARLIER_MS = {"quantile_compact": 0.0477, "fused_level_tick L0": 0.2171,
               "stratified_stats (2200, 4)": 0.00461,
               "stratified_stats (44032, 16)": 0.00783,
               "stratified_stats (4400, 8)": 0.00550,
-              "stratified_stats (3000, 4096)": 0.716}
+              "stratified_stats (3000, 4096)": 0.716,
+              # the first design
+              "sample_mask (44032, 16)": 0.00165,
+              "sample_mask (4400, 8)": 0.00151,
+              "sample_mask (2200, 4)": 0.00149}
 F32_ATTN = (1, 9, 3, 512, 64)
 # Kernel vs plain version: f32 only the order of the f32 sums and exp's
 # last bit differ; bf16 both round p at the same values (same kv blocks,
@@ -1418,6 +1525,17 @@ def profile_call(what, fn, units, unit):
         print(f"  {us / 1e3:8.3f} ms  {count:5d}x  {name[:90]}")
 
 
+def tool(name: str):
+    """The module ``tools/<name>.py`` beside this script."""
+    import importlib.util
+
+    path = Path(__file__).resolve().parent / "tools" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def sass_counts(lib: Path) -> None:
     """Count the bf16 flash kernel's tensor-core (HGMMA) and TMA
     (UTMALDG) instructions in the library's SASS, where the toolkit has
@@ -1772,22 +1890,42 @@ def main() -> None:
     sm_b = [bound(m * 14 + x * 8, 2 * m) for m, x in MASK_SHAPES]
     bounds["sample_mask"] = (sum(b[0] for b in sm_b) / len(sm_b),
                              max(sm_b)[1])
-    print(f"sample_mask device time per launch at (M, X) {MASK_SHAPES}: "
-          f"{[round(x, 5) for x in sm_each]} ms; bounds "
-          f"{[round(b[0] * 1e3, 5) for b in sm_b]} us ({sm_b[0][1]})")
+    # The span from the end of τ's producer to the end of the mask: the
+    # select's tail queued behind a spin kernel (what the device alone
+    # takes; a programmatic dependent launch may start before τ's
+    # producer ends), and PallasBackend.select as the path calls it
+    # (its boolean indexing synchronises, so the host issues the tail).
+    from repro_torch.core import sampling as samp
+
+    pallas = samp.get_backend("pallas")
+    for (mm, x), a, ms, b in zip(MASK_SHAPES, sm_cases, sm_each, sm_b):
+        res = torch.from_numpy(np.random.default_rng(mm).integers(
+            0, max(mm // x, 2), x).astype(np.float32)).to(dev)
+        queued = span_ms(select_tail(sm.sample_mask, *a[:4]), "sample_mask",
+                         back=2)
+        once = span_ms(select_tail(sm.sample_mask, *a[:4], fresh_w=False),
+                       "sample_mask", back=1)
+        called = span_ms(lambda a=a, r=res, x=x: pallas.select(
+            None, a[1], a[2], r, x, priorities=a[0]), "sample_mask", back=2)
+        print(f"sample_mask ({mm}, {x}): device {ms:.5f} ms/launch (first "
+              f"design {EARLIER_MS[f'sample_mask ({mm}, {x})']}), bound "
+              f"{b[0]:.7f} ms ({b[1]}); tau producer -> mask span "
+              f"{queued:.5f} ms queued ({once:.5f} with W made once), "
+              f"{called:.5f} ms in PallasBackend.select")
+    # The floor under every launch (tools/launch_floor.py): an empty grid
+    # and one load and store a thread at sample_mask's grids, alone and
+    # as spans after a trivial predecessor, plain and as a programmatic
+    # dependent.
+    for grid, row in tool("launch_floor").measure(dev).items():
+        print(f"launch floor (tools/launch_floor.py) {grid}: "
+              + ", ".join(f"{k} {v:.5f} ms" for k, v in row.items()))
     # The ordered segment_sum at its path shapes: a root window's moments
     # (2,200 items, 4 strata), a neyman level's stds (4 x 11,008) and a
     # tenant's histogram (32 bins, int64 ids). Bound: value and id per item
     # in, the sums out; one add per item. Its serial floor: the longest
     # segment's items times one dependent f32 add (tools/fadd_chain.py).
     # Plain = library = index_add_ (float atomics, unordered).
-    import importlib.util
-
-    probe = Path(__file__).resolve().parent / "tools" / "fadd_chain.py"
-    spec_ = importlib.util.spec_from_file_location("fadd_chain", probe)
-    fadd_chain = importlib.util.module_from_spec(spec_)
-    spec_.loader.exec_module(fadd_chain)
-    chain = fadd_chain.measure(dev)
+    chain = tool("fadd_chain").measure(dev)
     print(f"dependent f32 add (tools/fadd_chain.py): "
           f"{chain['add_cycles']:.3f} cycles, {chain['add_ns']:.4f} ns; "
           f"folded from shared memory {chain['fold_cycles']:.3f} cycles, "
@@ -1892,10 +2030,6 @@ def main() -> None:
     del q, k, v
     t["flash_attention"] = flash[SMOLLM_ATTN][:3]
     bounds["flash_attention"] = flash[SMOLLM_ATTN][3]
-    tiny = torch.zeros(1, device=dev)
-    print(f"launch floor (1-element add_): device "
-          f"{device_ms(lambda: tiny.add_(1.0), 200):.4f} ms, back-to-back "
-          f"loop {loop_ms(lambda: tiny.add_(1.0), 200):.4f} ms")
     # Each kernel's own time is the median of up to TRACES traces; per
     # timing: min, median and max ms, traces kept and rejected, or the
     # CUDA-event time where every trace was rejected (cms_update and

@@ -6,10 +6,11 @@ largest valid priority of stratum ``i``, so ``keep = u ≥ τ`` keeps each
 stratum's top ``N_i`` and every item tied with the last of them.
 
 Stage 2, ``sample_mask``: on a CUDA tensor the wrapper launches
-``csrc/sample_mask.cu``; on a CPU tensor it calls the plain version in
-``ref.py``. Any other case raises: there is no fallback from the card to
-the plain version. Both give the same bits (one compare and one select
-per item).
+``csrc/sample_mask.cu`` once (four items a thread, as 16-byte vectors
+where every pointer allows it, else one by one in the same kernel); on
+a CPU tensor it calls the plain version in ``ref.py``. Any other case
+raises: there is no fallback from the card to the plain version. Both
+give the same bits (one compare and one select per item).
 """
 from __future__ import annotations
 
@@ -20,7 +21,8 @@ import torch
 from repro_torch.kernels import LAUNCHES, _build
 from repro_torch.kernels.sample_mask import ref
 
-# τ and W are staged in shared memory: 2·X floats, under 48 KB.
+# The kernel's contract on X, 1 ≤ X ≤ MAX_STRATA, kept from its first
+# design (which staged 2·X floats of τ and W in 48 KB of shared memory).
 MAX_STRATA = 6144
 
 
@@ -29,9 +31,19 @@ def _lib():
     fn = lib.sample_mask_launch
     if fn.argtypes is None:
         P, I = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [P, P, P, P, P, I, I, P, P, P]
+        fn.argtypes = [P, P, P, P, P, I, I, I, P, P, P]
         fn.restype = I
     return lib
+
+
+def vector_aligned(priorities, strata, valid, keep, w) -> bool:
+    """Whether the kernel may move its four items a thread as vectors:
+    ``priorities``, ``strata`` and ``w`` on 16 bytes, ``valid`` and
+    ``keep`` on 4. A view at another storage offset takes the kernel's
+    scalar path."""
+    wide = priorities.data_ptr() | strata.data_ptr() | w.data_ptr()
+    narrow = valid.data_ptr() | keep.data_ptr()
+    return wide % 16 == 0 and narrow % 4 == 0
 
 
 def thresholds_from_reservoirs(priorities: torch.Tensor,
@@ -101,8 +113,9 @@ def sample_mask(priorities: torch.Tensor, strata: torch.Tensor,
                       (priorities, strata, valid, tau, weights))
     lib = _lib()
     P = _build.ptr
-    rc = lib.sample_mask_launch(P(u), P(s), P(v), P(t), P(wt), m, x, P(keep),
-                                P(w), _build.stream_of(u))
+    vec = int(vector_aligned(u, s, v, keep, w))
+    rc = lib.sample_mask_launch(P(u), P(s), P(v), P(t), P(wt), m, x, vec,
+                                P(keep), P(w), _build.stream_of(u))
     _build.check(lib, rc, "sample_mask")
     LAUNCHES["sample_mask"] += 1
     return keep, w

@@ -13,7 +13,10 @@ are compared bitwise; ``stratified_stats``' Σx and Σx² within
 sketches that call them (``hh_update``, ``quantile_update``) launch them
 as often as their design says. ``sample_mask`` and the ordered
 ``segment_sum`` are compared bitwise too (the latter against the CPU's
-``index_add_``, on sums whose value depends on their order). The
+``index_add_``, on sums whose value depends on their order);
+``sample_mask`` also on the vector path's tail, on views at storage
+offsets that force its scalar path, on NaN priorities and -0.0 against
+τ = +0.0, at 1 to 6,144 strata, and one call is one launch. The
 ``pallas_fused`` kernels are held bitwise above 32 strata per node too,
 at every change of the radix digit's width up to 4,096 strata, on caps
 that the cluster of CTAs does not divide or that are smaller than it, on
@@ -314,12 +317,30 @@ def test_sketch_updates_launch_their_kernels(cuda_device):
         _bits(a.cpu().numpy(), b.numpy())
 
 
+def _on_card_at(a, offset, device):
+    """``a`` on the card as a view at storage offset ``offset`` items."""
+    return torch.empty(offset + a.shape[0], dtype=a.dtype,
+                       device=device)[offset:].copy_(a)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("m,x,ties", [(44_032, 16, False), (4_400, 8, False),
-                                     (2_200, 4, True), (1, 4, False),
-                                     (333, 2, True), (44_033, 32, True),
-                                     (5_000, 6144, False)])
-def test_sample_mask_kernel_matches_plain(cuda_device, m, x, ties):
+@pytest.mark.parametrize("m,x,ties,offset,special", [
+    (44_032, 16, False, 0, False), (4_400, 8, False, 0, False),
+    (2_200, 4, True, 0, False), (1, 4, False, 0, False),
+    (333, 2, True, 0, False), (44_033, 32, True, 0, False),
+    (5_000, 6144, False, 0, False),
+    # the vector path's tail (M mod 4) and one stratum
+    (2, 4, False, 0, False), (3, 1, True, 0, False), (5, 3, False, 0, False),
+    (7, 2, True, 0, False), (1_023, 16, False, 0, False),
+    (2_200, 1, False, 0, False),
+    # views at storage offsets 1-3 items (the kernel's scalar path) and 4
+    # (a view the vector path takes), NaN priorities and -0.0 against
+    # tau = +0.0, up to the most strata
+    (1_023, 4, False, 1, True), (44_033, 16, True, 2, True),
+    (4_400, 8, False, 3, True), (2_200, 4, True, 4, True),
+    (44_032, 6144, False, 0, True), (9, 1, False, 1, True)])
+def test_sample_mask_kernel_matches_plain(cuda_device, m, x, ties, offset,
+                                          special):
     rng = np.random.default_rng(m + x)
     u = (rng.integers(0, 41, m) / 41.0 if ties else rng.random(m)).astype(
         np.float32)
@@ -332,18 +353,25 @@ def test_sample_mask_kernel_matches_plain(cuda_device, m, x, ties):
     res[-1] = float(m)                         # keep all: τ = −1
     t = [torch.from_numpy(a) for a in (u, strata, valid)]
     tau = tsm.thresholds_from_reservoirs(*t, res, x)
+    tau_card = tsm.thresholds_from_reservoirs(
+        *(a.to(cuda_device) for a in t), res.to(cuda_device), x)
+    _bits(tau_card.cpu().numpy(), tau.numpy(), "tau")
+    if special:
+        j = x // 2
+        tau[j] = 0.0
+        mine = np.flatnonzero(strata == j)
+        t[0][mine[0::2]] = -0.0                # kept at τ = +0.0
+        t[0][mine[1::4]] = 0.0
+        t[0][3::11] = float("nan")             # never kept
     w = torch.from_numpy(rng.uniform(0.5, 9.0, x).astype(np.float32))
     want = tsm_ref.sample_mask(*t, tau, w)
     reset_launches()
-    got = tsm.sample_mask(*(a.to(cuda_device) for a in t),
+    got = tsm.sample_mask(*(_on_card_at(a, offset, cuda_device) for a in t),
                           tau.to(cuda_device), w.to(cuda_device))
     torch.cuda.synchronize()
     assert LAUNCHES["sample_mask"] == 1
     for g, wnt, name in zip(got, want, ("keep", "w")):
         _bits(g.cpu().numpy(), wnt.numpy(), name)
-    tau_card = tsm.thresholds_from_reservoirs(
-        *(a.to(cuda_device) for a in t), res.to(cuda_device), x)
-    _bits(tau_card.cpu().numpy(), tau.numpy(), "tau")
 
 
 def _ordered_inputs(rng, rows, m, x):
@@ -515,6 +543,21 @@ def test_each_call_is_one_kernel_and_no_fill(cuda_device):
     s, k = (torch.from_numpy(a[0]).to(cuda_device) for a in (strata, valid))
     ops = _device_ops(lambda: tss.stratified_stats(z, s, k, 16))
     assert len(ops) == 10 and all("stratified_stats" in n for n in ops), ops
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1])
+def test_sample_mask_call_is_one_kernel(cuda_device, offset):
+    """One ``sample_mask`` call is one launch of its kernel and no other
+    device operation (no fill, no copy), on the vector path and on a view
+    that takes the scalar path."""
+    vals, strata, valid, u, _, _ = _level(11, 1, 44_032, 16, 0.8, False)
+    t = [_on_card_at(torch.from_numpy(a[0]), offset, cuda_device)
+         for a in (u, strata, valid)]
+    tau = torch.rand(16, device=cuda_device)
+    w = torch.rand(16, device=cuda_device)
+    ops = _device_ops(lambda: tsm.sample_mask(*t, tau, w))
+    assert len(ops) == 10 and all("sample_mask" in n for n in ops), ops
 
 
 @pytest.mark.cuda

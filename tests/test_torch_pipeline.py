@@ -241,7 +241,8 @@ def test_port_never_imports_jax_or_the_reference():
               REPO / "examples" / "taxi_analytics_torch.py"]
     tools = sorted((REPO / "tools").glob("*.py"))
     for tool in ("flash_planted_faults.py", "flash_rounding_check.py",
-                 "fused_tick_phases.py", "kernel_ab.py", "fadd_chain.py"):
+                 "fused_tick_phases.py", "kernel_ab.py", "fadd_chain.py",
+                 "launch_floor.py"):
         assert REPO / "tools" / tool in tools, tool
     files += tools
     assert len(files) > 20

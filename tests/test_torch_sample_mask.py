@@ -142,3 +142,65 @@ def test_pallas_backend_matches_reference(ties, x):
         assert bool((got | ~argsort).all())     # keeps argsort's and more
     else:
         assert torch.equal(got, argsort)
+
+
+def _special(m, x, seed):
+    """Priorities with NaN (never kept) and, in one stratum whose τ is
+    +0.0, priorities of -0.0 (kept) and +0.0; invalid slots carry strata
+    outside [0, X)."""
+    u, s, v, res, w = _case(m, x, seed, p_valid=0.8)
+    rng = np.random.default_rng(seed + 1)
+    s[~v] = rng.integers(-2 * x, 2 * x, int((~v).sum()))
+    tau = np.array(jsm.thresholds_from_reservoirs(u, s, v, res, x))
+    j = x // 2
+    tau[j] = 0.0
+    mine = np.flatnonzero(s == j)
+    u[mine[0::2]] = -0.0
+    u[mine[1::4]] = 0.0
+    u[3::11] = np.nan
+    return u, s, v, tau, w
+
+
+@pytest.mark.parametrize("offset", [1, 2, 3])
+@pytest.mark.parametrize("m,x", [(1023, 4), (4400, 8), (7, 1)])
+def test_offset_views_nan_and_signed_zero_match_reference(m, x, offset):
+    """Inputs as views at storage offsets 1–3 items (what sends the card's
+    kernel down its scalar path), with NaN priorities and -0.0 against
+    τ = +0.0: the port's plain version against the reference's
+    ``ref.sample_mask`` and its Pallas kernel in interpret mode, bitwise."""
+    u, s, v, tau, w = _special(m, x, 31 * m + offset)
+    jk, jw = jsm.sample_mask(u, s, v, tau, w, impl="pallas")
+    rk, rw = jax.jit(jsm_ref.sample_mask)(u, s, v, tau, w)
+    views = []
+    for a in (u, s, v):
+        buf = torch.zeros(offset + m, dtype=torch.from_numpy(a).dtype)
+        buf[offset:] = torch.from_numpy(a)
+        views.append(buf[offset:])
+    assert all(t.storage_offset() == offset for t in views)
+    tk, tw = tsm.sample_mask(*views, torch.from_numpy(tau),
+                             torch.from_numpy(w))
+    for name, got, want in (("keep", tk, jk), ("w", tw, jw),
+                            ("keep/ref", tk, rk), ("w/ref", tw, rw)):
+        _bits(got.numpy(), want, name)
+    kept = tk.numpy()
+    assert not kept[np.isnan(u)].any()
+    assert kept[(s == x // 2) & v & (u == 0.0)].all()   # -0.0 and +0.0
+
+
+@pytest.mark.parametrize("offset,aligned", [(0, True), (1, False),
+                                            (2, False), (3, False),
+                                            (4, True)])
+def test_vector_path_needs_aligned_views(offset, aligned):
+    """The wrapper sends the kernel down its vector path only when u, s
+    and w lie on 16 bytes and valid and keep on ``ITEMS`` bytes; a view
+    at 1–3 items off takes the scalar path of the same kernel."""
+    m = 64
+    u, s = (torch.empty(m + 4, dtype=d)[offset:offset + m]
+            for d in (torch.float32, torch.int32))
+    v = torch.empty(m + 4, dtype=torch.bool)[offset:offset + m]
+    keep = torch.empty(m, dtype=torch.bool)
+    w = torch.empty(m, dtype=torch.float32)
+    assert tsm.vector_aligned(u, s, v, keep, w) is aligned
+    # one input off is enough for the scalar path
+    assert not tsm.vector_aligned(u, s, v, keep[1:], w)
+    assert not tsm.vector_aligned(u, s, v, keep, w[1:])

@@ -1,6 +1,7 @@
 """Device times of ``fused_level_tick``, ``fused_select``,
-``quantile_compact``, ``segment_sum`` and ``stratified_stats`` for two
-source trees of the port, in one call on one CUDA card.
+``quantile_compact``, ``segment_sum``, ``stratified_stats`` and
+``sample_mask`` for two source trees of the port, in one call on one
+CUDA card.
 
     python3 tools/kernel_ab.py OTHER_TREE
 
@@ -16,8 +17,14 @@ at ``[1, 2200] x 4`` (a root window's moments), ``[4, 11008] x 4`` (a
 neyman level's stds) and ``[1, 2200] x 32`` with int64 ids (a tenant's
 histogram), and ``stratified_stats`` at the root's ``(2200, 4)`` on
 ``pallas_fused``, at ``chip_smoke.MASK_SHAPES`` (the ``pallas``
-backend's three launches a tick) and at ``(3000, 4096)``. Times are
-``chip_smoke.device_ms`` (the median of profiler traces), per launch.
+backend's three launches a tick) and at ``(3000, 4096)``, and
+``sample_mask`` at ``chip_smoke.MASK_SHAPES``, by its device time and by
+the τ producer → mask span (``chip_smoke.select_tail`` queued behind a
+spin kernel, ``chip_smoke.span_ms``: a programmatic dependent launch
+can start before the τ producer ends, which a sum of durations would
+not show), and by the wrapper's host issue time (``chip_smoke.loop_ms``
+over 200 back-to-back calls). Times are ``chip_smoke.device_ms`` (the
+median of profiler traces), per launch.
 Prints one JSON line per run and the card's name and power limit.
 """
 from __future__ import annotations
@@ -38,6 +45,7 @@ def measure(tree: Path, path_shapes) -> dict:
     sys.path.insert(0, str(ROOT))
     import chip_smoke as C
     from repro_torch.kernels.fused_level_tick import ops as ft, ref as ft_ref
+    from repro_torch.kernels.sample_mask import ops as sm
     from repro_torch.kernels.segment_sum import ops as seg
     from repro_torch.kernels.sketch_update import ops as sk
     from repro_torch.kernels.stratified_stats import ops as ss
@@ -76,6 +84,14 @@ def measure(tree: Path, path_shapes) -> dict:
         stats[f"stratified_stats ({m}, {x})"] = C.device_ms(
             lambda z=z, s=strata, k=valid, x=x: ss.stratified_stats(z, s, k,
                                                                     x))
+    for m, x in C.MASK_SHAPES:
+        args = [a.to(dev) for a in C.mask_inputs(rng, m, x, False)]
+        stats[f"sample_mask ({m}, {x})"] = C.device_ms(
+            lambda a=args: sm.sample_mask(*a))
+        stats[f"sample_mask span ({m}, {x})"] = C.span_ms(
+            C.select_tail(sm.sample_mask, *args[:4]), "sample_mask", back=2)
+        stats[f"sample_mask wrapper loop ({m}, {x})"] = C.loop_ms(
+            lambda a=args: sm.sample_mask(*a), 200)
     return {
         "tree": str(tree),
         "fused_level_tick L0": C.device_ms(
