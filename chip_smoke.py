@@ -72,7 +72,23 @@ Drives ``src/repro_torch`` only (nothing of JAX or of the JAX package):
    flash kernel, launched once per layer (30), against the xla path, and
    an f32 copy (B 1, S 512) card against CPU; the serve CLI
    (``repro_torch.launch.serve``) at the reference's defaults, and one
-   f32 batch whose greedy tokens must be the CPU's;
+   f32 batch whose greedy tokens must be the CPU's. Then the serve
+   plane: the testbed with the two tenants behind
+   ``repro_torch.serve.StreamingExecutor`` (epochs of ``TICKS`` ticks,
+   width 11008, queues of ``EX_QUEUE``), fed by 4 shards, each a
+   ``SyntheticSource`` of the four Gaussian sub-streams at ``EX_RATE``
+   items a tick (32,000 a tick), on a fake clock for ``EX_EPOCHS``
+   epochs: its launches of each kernel counted, and its published
+   windows bitwise ``run_epoch`` with the executor's key schedule on the
+   same ingest; the same run with shard 3 late for epoch 2, card against
+   CPU (bitwise but the sketch bounds, ``SKETCH_BOUND_RTOL``), every
+   queue drained and every admitted item taken by level 0; a real-clock
+   run for the executor's items/s, window latency p50/p99 and overlap
+   fraction, and one profiled epoch; the serve CLI's ``--serve-loop``
+   (also with ``--inject-straggler`` and ``--metrics-dump``) and
+   ``--hot-admit`` at their defaults, each printing the reference's
+   lines; a checkpoint saved after one epoch and restored into a fresh
+   compile, whose next epoch is bitwise the uninterrupted one;
 4. times each kernel at the main path's shapes beside its bound, its
    plain version and (where one exists) one PyTorch call computing the
    same function, as device time from the profiler's CUDA trace (and
@@ -1282,6 +1298,275 @@ def run_serve(dev, LAUNCHES, reset_launches) -> dict:
             "exact": exact}
 
 
+# ----------------------------------------------------------- serve plane --
+# The executor in front of the testbed with tenants: 4 shards, each a
+# source of the four Gaussian sub-streams at EX_RATE items a tick each, so
+# 32,000 items a tick, the testbed's stream rate; epochs of TICKS ticks.
+EX_EPOCHS = 3
+EX_RATE = 2000
+EX_QUEUE = 32768
+SERVE_LOOP_LINES = ("serve-loop: ", "  windows published ",
+                    "  queue accounting ", "  ingest/dispatch overlap ",
+                    "  window latency ", "  latency p50/p99 ms ")
+HOT_ADMIT_LINES = ("hot-admit 'slo' tenant after ", "  churn cost: ",
+                   "served ", "telemetry plane: ", "  QPS ",
+                   "  p50 / p99 ms ")
+
+
+class FakeClock:
+    """An injected clock that moves only when the caller moves it."""
+
+    def __init__(self):
+        self.t = 0.0
+
+    def __call__(self) -> float:
+        return self.t
+
+
+def serve_sources(serve, S, late):
+    """One ``SyntheticSource`` a shard (seed = shard); with ``late``,
+    shard 3 held back for the second epoch's pumps and released at the
+    first pump of the third."""
+    srcs = [serve.SyntheticSource(i, specs=S.paper_gaussian(
+        rates=(EX_RATE,) * 4), seed=i) for i in range(4)]
+    if late:
+        srcs[3] = serve.LateShardSource(srcs[3], TICKS, 2 * TICKS)
+    return srcs
+
+
+def run_executor(P, serve, S, spec, device, late):
+    """``EX_EPOCHS`` epochs of pumps on a fake clock, then ``stop()``."""
+    pipe = P.compile(spec, device=device)
+    clock = FakeClock()
+    ex = serve.StreamingExecutor(epoch_ticks=TICKS,
+                                 width=spec.topology.capacity,
+                                 queue_capacity=EX_QUEUE, clock=clock)
+    ex.start(pipe, serve_sources(serve, S, late), warmup=False)
+    for _ in range(EX_EPOCHS * TICKS):
+        clock.t += 1.0
+        ex.pump()
+    return pipe, ex, ex.stop()
+
+
+def window_cols(pipe):
+    """(sketch columns, the other columns) of the public answer vector."""
+    sketch, other = [], []
+    for o, w, kind in pipe.query_layout().values():
+        (sketch if kind in SKETCH_KINDS or kind in HH_KINDS
+         else other).extend(range(o, o + w))
+    return np.asarray(sketch, np.int64), np.asarray(other, np.int64)
+
+
+def same_arrays(a, b) -> bool:
+    """``same_bits`` of two host arrays."""
+    return same_bits(torch.from_numpy(np.ascontiguousarray(a)),
+                     torch.from_numpy(np.ascontiguousarray(b)))
+
+
+def lines_of(fn, *prefixes):
+    """Run ``fn`` with its standard output captured, print what it printed
+    and fail unless every prefix starts one of its lines; → its result."""
+    import contextlib
+    import io
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        result = fn()
+    text = out.getvalue()
+    print(text, end="")
+    lines = text.splitlines()
+    missing = [p for p in prefixes if not any(ln.startswith(p)
+                                              for ln in lines)]
+    if missing:
+        fail(f"the serve CLI did not print the reference's lines {missing}")
+    return result
+
+
+def run_serve_plane(P, S, dev, qspec, LAUNCHES, reset_launches,
+                    per_window) -> None:
+    """Phase 3, the serve plane: the testbed with tenants behind
+    ``StreamingExecutor`` on the card (on time, then with a straggler),
+    held against ``run_epoch`` and against the CPU; a real-clock run for
+    the wall-clock figures; the serve CLI's continuous and hot-admit
+    modes; a checkpoint saved and restored on the card."""
+    import tempfile
+
+    from repro_torch import serve
+    from repro_torch.core import prng
+    from repro_torch.launch import serve as cli
+    from repro_torch.obs import metrics
+
+    t_plane = time.perf_counter()
+    width = qspec.topology.capacity
+    ticks = EX_EPOCHS * TICKS
+    # 1. On time, against run_epoch with the executor's key schedule on
+    # the same staged ingest (each tick drains every queue: no
+    # truncation, no deferral, so the staged rows are the sources' ticks).
+    reset_launches()
+    pipe, ex, summary = run_executor(P, serve, S, qspec, dev, late=False)
+    launches = dict(LAUNCHES)
+    expected = {k: v * ticks for k, v in per_window.items()}
+    print(f"serve plane, on time: {EX_EPOCHS} epochs x {TICKS} ticks of "
+          f"{4 * 4 * EX_RATE} items a tick behind StreamingExecutor; "
+          f"launches in the executor's epochs {launches} (expected "
+          f"{expected}, segment_sum at least {6 * ticks})")
+    for name, want in expected.items():
+        if launches[name] != want:
+            fail(f"serve plane: {name} launched {launches[name]} times in "
+                 f"the executor's epochs, expected {want}")
+    if launches["segment_sum"] < 6 * ticks:
+        fail(f"serve plane: segment_sum launched "
+             f"{launches['segment_sum']} times, expected at least "
+             f"{6 * ticks}")
+    if (summary["truncated_items"] or summary["queue_deferred"]
+            or summary["queue_items_dropped"] or summary["windows_partial"]):
+        fail(f"serve plane, on time: the executor truncated, deferred, "
+             f"dropped or published partial windows: {summary}")
+    srcs = [S.StreamSource(S.paper_gaussian(rates=(EX_RATE,) * 4), seed=i)
+            for i in range(4)]
+    state = pipe.init()
+    rows = []
+    for epoch in range(EX_EPOCHS):
+        b = S.batch_ingest(srcs, TICKS, 4, width)
+        state, wa = pipe.run_epoch(state, prng.fold_in(pipe.default_key,
+                                                       epoch),
+                                   b.values, b.strata, b.counts)
+        rows.extend(pipe.rows(wa))
+    if len(rows) != len(ex.published) or len(rows) != ticks:
+        fail(f"serve plane: {len(ex.published)} windows published, "
+             f"run_epoch flushed {len(rows)}, expected {ticks}")
+    for row, win in zip(rows, ex.published):
+        if not (row["tick"] == win.tick and row["sum"] == win.sum
+                and row["sum_var"] == win.sum_var
+                and row["mean"] == win.mean
+                and row["mean_var"] == win.mean_var
+                and row["n_sampled"] == win.n_sampled
+                and same_arrays(row["histogram"], win.histogram)
+                and same_arrays(row["answers"], win.answers)
+                and same_arrays(row["bounds"], win.bounds)):
+            fail(f"serve plane: the published window of tick {win.tick} "
+                 f"is not bitwise run_epoch's")
+    print(f"serve plane, on time: {len(rows)} published windows bitwise "
+          f"run_epoch's on the card (tick, SUM, MEAN, variances, "
+          f"n_sampled, histogram, answers, bounds)")
+
+    # 2. A straggler: shard 3 late for epoch 2; card against CPU.
+    kpipe, kex, ksum = run_executor(P, serve, S, qspec, dev, late=True)
+    _, cex, csum = run_executor(P, serve, S, qspec, "cpu", late=True)
+    sketch, other = window_cols(kpipe)
+    if len(kex.published) != len(cex.published):
+        fail(f"serve plane, straggler: {len(kex.published)} windows on the "
+             f"card, {len(cex.published)} on the CPU")
+    for k, c in zip(kex.published, cex.published):
+        same = ((k.tick, k.alpha, k.partial, k.sum, k.sum_var, k.mean,
+                 k.mean_var, k.n_sampled)
+                == (c.tick, c.alpha, c.partial, c.sum, c.sum_var, c.mean,
+                    c.mean_var, c.n_sampled)
+                and same_arrays(k.histogram, c.histogram)
+                and same_arrays(k.answers, c.answers)
+                and same_arrays(k.bounds[other], c.bounds[other]))
+        if not same:
+            fail(f"serve plane, straggler: the window of tick {k.tick} "
+                 f"differs between the card and the CPU")
+        if not np.allclose(k.bounds[sketch], c.bounds[sketch],
+                           rtol=SKETCH_BOUND_RTOL, atol=0.0):
+            fail(f"serve plane, straggler: sketch bounds of tick {k.tick} "
+                 f"beyond {SKETCH_BOUND_RTOL} of the CPU's")
+    n_partial = ksum["windows_partial"]
+    k_stats = {f: v for f, v in ksum.items() if f != "overlap_fraction"}
+    c_stats = {f: v for f, v in csum.items() if f != "overlap_fraction"}
+    if k_stats != c_stats or n_partial < 1:
+        fail(f"serve plane, straggler: stats {ksum} against the CPU's "
+             f"{csum} ({n_partial} partial windows)")
+    if max(ksum["queue_depth"]) != 0:
+        fail(f"serve plane, straggler: queues not drained: "
+             f"{ksum['queue_depth']}")
+    tel = kpipe.telemetry_snapshot(kex.state)
+    taken = tel["levels"][0]["items_in"]
+    raw = sum(float(kpipe.answer(w.raw["answers"], "count", tenant="k8")[0])
+              for w in kex.published)
+    if taken != ksum["queue_items_in"] or abs(
+            raw - taken) > 1e-5 * taken:
+        fail(f"serve plane, straggler: items in the queues "
+             f"{ksum['queue_items_in']}, level 0 took {taken}, the windows' "
+             f"raw counts sum to {raw}")
+    alphas = sorted({round(w.alpha, 4) for w in kex.published if w.partial})
+    print(f"serve plane, straggler (shard 3 late for epoch 2): "
+          f"{len(kex.published)} windows, {n_partial} partial (alpha "
+          f"{alphas}), late shards {kex.monitor.late_shards_total}; card "
+          f"bitwise the CPU (sketch bounds within {SKETCH_BOUND_RTOL}); "
+          f"queues drained; level 0 took all {int(taken)} items the "
+          f"queues admitted ({ksum['queue_deferred']} deferred by the full "
+          f"queue), the windows' raw counts sum to {raw:.1f}")
+
+    # 3. The wall-clock figures, on the real clock: items/s through the
+    # executor, window latency (arrival -> published), the overlap, and
+    # the device's busy share over one profiled epoch.
+    pipe = P.compile(qspec, device=dev)
+    ex = serve.StreamingExecutor(epoch_ticks=TICKS, width=width,
+                                 queue_capacity=EX_QUEUE)
+    ex.start(pipe, serve_sources(serve, S, late=False))
+    t0 = time.perf_counter()
+    ex.run(ticks)
+    wall_summary = ex.stop()
+    wall = time.perf_counter() - t0
+    rate = wall_summary["queue_items_out"] / wall
+    print(f"serve plane, real clock: {ticks} ticks, "
+          f"{wall_summary['queue_items_out']} items in {wall:.3f} s: "
+          f"{rate:.6g} items/s through the executor; window latency p50 "
+          f"{wall_summary['latency_p50'] * 1e3:.3f} ms, p99 "
+          f"{wall_summary['latency_p99'] * 1e3:.3f} ms; overlap fraction "
+          f"{wall_summary['overlap_fraction']:.6f}")
+    ex.start(pipe, serve_sources(serve, S, late=False))
+    profile_call(f"executor epoch ({TICKS} pumps)", lambda: ex.run(TICKS),
+                 TICKS, "tick")
+    ex.stop()
+
+    # 4. The serve CLI: the continuous mode, with a straggler, hot-admit at
+    # its defaults, and a metrics dump that parses.
+    lines_of(lambda: cli.main(["--serve-loop", "--duration", "2"]),
+             *SERVE_LOOP_LINES)
+    late = lines_of(lambda: cli.main(["--serve-loop", "--duration", "2",
+                                      "--inject-straggler"]),
+                    *SERVE_LOOP_LINES)
+    if late["windows_partial"] < 1 or max(late["queue_depth"]) != 0:
+        fail(f"serve CLI --inject-straggler: {late}")
+    lines_of(lambda: cli.main(["--hot-admit"]), *HOT_ADMIT_LINES)
+    with tempfile.TemporaryDirectory() as tmp:
+        dump = str(Path(tmp) / "metrics.txt")
+        lines_of(lambda: cli.main(["--serve-loop", "--duration", "2",
+                                   "--metrics-dump", dump]),
+                 *SERVE_LOOP_LINES, f"  wrote {dump}")
+        fams = metrics.parse_prometheus_text(Path(dump).read_text())
+    if "repro_serve_windows_published_total" not in fams:
+        fail("serve CLI --metrics-dump: no repro_serve_* families")
+
+    # 5. A checkpoint saved mid-stream on the card, restored into a fresh
+    # compile: the resumed epoch is bitwise the uninterrupted one.
+    batches = make_ingest(S, 2, width)
+    pipe = P.compile(qspec, device=dev)
+    state, _ = pipe.run_epoch(pipe.init(), pipe.default_key,
+                              batches[0].values, batches[0].strata,
+                              batches[0].counts)
+    with tempfile.TemporaryDirectory() as tmp:
+        P.api.save_state(tmp, 1, state, pipeline=pipe)
+        _, want = pipe.run_epoch(state, pipe.default_key, batches[1].values,
+                                 batches[1].strata, batches[1].counts)
+        fresh = P.compile(qspec, device=dev)
+        restored, _ = P.api.restore_state(tmp, fresh)
+    _, got = fresh.run_epoch(restored, fresh.default_key, batches[1].values,
+                             batches[1].strata, batches[1].counts)
+    if restored.tick.device != dev or not all(
+            same_bits(getattr(got, f), getattr(want, f))
+            for f in want._fields if getattr(want, f) is not None):
+        fail("checkpoint: the epoch resumed from a restored checkpoint is "
+             "not bitwise the uninterrupted one")
+    print("checkpoint on the card: save_state after epoch 1, restore_state "
+          "into a fresh compile; epoch 2 resumed bitwise the uninterrupted "
+          "one")
+    print(f"serve plane part: {time.perf_counter() - t_plane:.1f} s")
+
+
 # ------------------------------------------------------------ main path --
 def k8_registry(Q):
     """The K=8 standing-query mix of ``benchmarks/fig8_accuracy.py``
@@ -1388,14 +1673,8 @@ def compare_answers(card, cpu, what, rtols=None):
 def compare_queries(pipe, card, cpu, card_state, cpu_state):
     """The tenants' answers and bounds, card vs CPU, and the sketch state:
     bitwise, but for the sketches' bounds (``SKETCH_BOUND_RTOL``)."""
-    sketch_cols, exact_cols = [], []
-    for o, w, kind in pipe.query_layout().values():
-        if kind in SKETCH_KINDS or kind in HH_KINDS:
-            sketch_cols.extend(range(o, o + w))
-        else:
-            exact_cols.extend(range(o, o + w))
-    sketch_cols, exact_cols = (torch.tensor(c) for c in (sketch_cols,
-                                                         exact_cols))
+    sketch_cols, exact_cols = (torch.from_numpy(c)
+                               for c in window_cols(pipe))
     for wa_k, wa_p in zip(card, cpu):
         ans_k, ans_p = wa_k.answers.cpu(), wa_p.answers
         bnd_k, bnd_p = wa_k.bounds.cpu(), wa_p.bounds
@@ -1724,6 +2003,10 @@ def main() -> None:
     # flash kernel, then the serve CLI.
     prefill = run_prefill(dev, LAUNCHES, reset_launches)
     served = run_serve(dev, LAUNCHES, reset_launches)
+    # The serve plane: the testbed with tenants behind the streaming
+    # executor.
+    run_serve_plane(P, S, dev, qspec, LAUNCHES, reset_launches,
+                    per_window)
 
     # 4. Times, at the main path's shapes: device time from the profiler
     # (what ``ms``, ``plain_ms`` and ``library_ms`` report), and beside it

@@ -16,8 +16,15 @@ The counterpart of ``repro.api.pipeline``:
 
 ``program_cache_stats`` counts program signatures seen and repeated,
 the counterpart of the reference's program cache (each pipeline builds
-its own tick and epoch closures, which cost next to nothing). Not
-ported yet: ``admit``/``retire`` (tenant churn) and checkpoints.
+its own tick and epoch closures, which cost next to nothing).
+
+Tenant churn: ``admit(state, tenant)`` and ``retire(state, name)`` return
+a new ``(pipeline, state)`` pair, the slot mask and sketch rows edited in
+the state; the pipeline builds new closures only where the slot plan's
+core changed (a new group, or a bucket that grew). Checkpoints:
+``save_state``/``restore_state`` write and read the reference's format
+(``checkpoint.manager``), the spec and the slot manifest in its
+metadata.
 
 The pipeline runs on a CUDA device unless ``device="cpu"`` is asked for
 (see ``repro_torch.device``). ``budgets`` are per-level sample sizes,
@@ -25,6 +32,7 @@ clamped to the provisioned ceilings.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, NamedTuple
 
 import numpy as np
@@ -177,8 +185,31 @@ def program_cache_stats() -> dict:
     return dict(_PROGRAM_STATS)
 
 
+def _sync_telemetry_slots(state: PipelineState, n_out: int
+                          ) -> PipelineState:
+    """Churn across a slot-bucket boundary changes the core's padded
+    answer width; the telemetry ``slot_rel_bound_sum`` leaf follows it
+    (zeros padded, or retired tail slots cut) or the next epoch's
+    accumulate would not fit."""
+    tel = state.tree.telemetry
+    if not hasattr(tel, "slot_rel_bound_sum"):
+        return state
+    cur = tel.slot_rel_bound_sum
+    if cur.shape[0] == n_out:
+        return state
+    if cur.shape[0] < n_out:
+        new = torch.cat([cur, cur.new_zeros(n_out - cur.shape[0])])
+    else:
+        new = cur[:n_out]
+    return state._replace(tree=state.tree._replace(
+        telemetry=tel._replace(slot_rel_bound_sum=new)))
+
+
 class CompiledPipeline(QueryRouting):
-    """One ``PipelineSpec`` bound to one device (see the module doc)."""
+    """One ``PipelineSpec`` bound to one device (see the module doc).
+
+    ``admit``/``retire`` return a new ``(pipeline, state)`` pair; the
+    pipeline given and its programs stay as they were."""
 
     def __init__(self, spec: PipelineSpec, device: torch.device):
         r = specmod.resolve(spec)
@@ -194,23 +225,86 @@ class CompiledPipeline(QueryRouting):
         self.route_keys = spec.strata.num_keys
         self.plan = r.plan
         self.tenant_names = tuple(t.name for t in spec.tenants)
-        self._traced_plan = r.plan.core if r.plan is not None else None
-        sig = (tuple(self.fanin), tuple(self.capacities),
-               tuple(self.max_sample_sizes), tuple(self.interval_ticks),
-               self.num_strata, spec.sampler.allocation,
-               spec.sampler.backend, spec.sampler.mode, r.p_level,
-               spec.sampler.fraction, self.route_keys,
-               self.telemetry_enabled, self._traced_plan, device)
-        _count_program(sig)
+        self._p_level = r.p_level
+        self._build_programs(r.plan.core if r.plan is not None else None)
+
+    def _build_programs(self, core) -> None:
+        """The tick and epoch closures over the slot plan's ``core``,
+        counted in ``program_cache_stats``."""
+        spec = self.spec
+        self._traced_plan = core
+        _count_program((
+            tuple(self.fanin), tuple(self.capacities),
+            tuple(self.max_sample_sizes), tuple(self.interval_ticks),
+            self.num_strata, spec.sampler.allocation, spec.sampler.backend,
+            spec.sampler.mode, self._p_level, spec.sampler.fraction,
+            self.route_keys, self.telemetry_enabled, core, self.device))
         self._tick_fn = T._build_scan_tick(
             self.fanin, self.capacities, self.max_sample_sizes,
             self.interval_ticks, self.num_strata, spec.sampler.allocation,
-            spec.sampler.backend, spec.sampler.mode, r.p_level,
-            spec.sampler.fraction, device, telemetry=self.telemetry_enabled,
-            plan=self._traced_plan)
+            spec.sampler.backend, spec.sampler.mode, self._p_level,
+            spec.sampler.fraction, self.device,
+            telemetry=self.telemetry_enabled, plan=core)
         self._epoch_fn = T._build_epoch_fn(self._tick_fn, self.fanin,
-                                           self.capacities,
-                                           plan=self._traced_plan)
+                                           self.capacities, plan=core)
+
+    # ---------------------------------------------------- tenant churn --
+    def _with_plan(self, plan, tenants) -> "CompiledPipeline":
+        """A clone carrying a new tenant plan (and the spec with the
+        edited ``tenants``), sharing this pipeline's closures unless the
+        plan's core changed."""
+        pipe = object.__new__(CompiledPipeline)
+        pipe.__dict__.update(self.__dict__)
+        pipe.plan = plan
+        pipe.tenant_names = plan.tenant_names
+        pipe.spec = dataclasses.replace(self.spec, tenants=tuple(tenants))
+        if plan.core is not self._traced_plan:
+            pipe._build_programs(plan.core)
+        return pipe
+
+    def admit(self, state: PipelineState, tenant
+              ) -> tuple["CompiledPipeline", PipelineState]:
+        """Hot-admit one tenant (a ``TenantSpec``) mid-stream →
+        ``(pipeline', state')``, the tenant's slot active with its sketch
+        rows at init. The answers are bitwise those of a fresh compile of
+        the same live set from the same state."""
+        if self.plan is None:
+            raise SpecError("admit() needs a tenanted pipeline — compile "
+                            "with at least one TenantSpec")
+        from repro_torch.obs.trace import span
+
+        with span("admit", tenant=tenant.name):
+            try:
+                new_plan, transform = self.plan.admit(tenant.name,
+                                                      tuple(tenant.queries))
+            except (KeyError, ValueError) as e:
+                raise SpecError(str(e)) from e
+            state = state._replace(tree=state.tree._replace(
+                qstate=transform(state.tree.qstate)))
+            state = _sync_telemetry_slots(state, new_plan.core.n_out)
+            return self._with_plan(new_plan,
+                                   self.spec.tenants + (tenant,)), state
+
+    def retire(self, state: PipelineState, tenant_id: str
+               ) -> tuple["CompiledPipeline", PipelineState]:
+        """Retire a live tenant: its slot's mask bit goes off (a later
+        ``admit`` recycles the slot). Inactive slots answer zeros, keep
+        their frozen state and never vote in budget arbitration."""
+        if self.plan is None:
+            raise SpecError("retire() needs a tenanted pipeline")
+        from repro_torch.obs.trace import span
+
+        with span("retire", tenant=tenant_id):
+            try:
+                new_plan, transform = self.plan.retire(tenant_id)
+            except (KeyError, ValueError) as e:
+                raise SpecError(str(e)) from e
+            state = state._replace(tree=state.tree._replace(
+                qstate=transform(state.tree.qstate)))
+            state = _sync_telemetry_slots(state, new_plan.core.n_out)
+            return self._with_plan(
+                new_plan, tuple(t for t in self.spec.tenants
+                                if t.name != tenant_id)), state
 
     @property
     def default_key(self) -> torch.Tensor:
@@ -313,6 +407,72 @@ class CompiledPipeline(QueryRouting):
             return state
         return state._replace(tree=state.tree._replace(
             qstate=self.plan.init_state(self.device)))
+
+
+# ------------------------------------------------------- checkpointing --
+def save_state(root, step: int, state: PipelineState, *,
+               spec: PipelineSpec | None = None,
+               pipeline: CompiledPipeline | None = None, keep_n: int = 3):
+    """Checkpoint a ``PipelineState`` (atomic, keep-N, the reference's
+    format: see ``checkpoint.manager``). ``spec`` rides in the manifest so
+    a restore can check it loads into the same pipeline; ``pipeline=``
+    (preferred) also records the slot configuration, which a churned
+    pipeline's spec alone cannot rebuild (retirement leaves slot holes).
+    Save before handing the state to ``run_epoch``, which consumes it."""
+    from repro_torch.checkpoint import manager
+    from repro_torch.obs.trace import span
+
+    if pipeline is not None and spec is None:
+        spec = pipeline.spec
+    meta = {"pipeline_spec": spec.to_dict()} if spec is not None else {}
+    plan = pipeline.plan if pipeline is not None else (
+        specmod.build_plan(spec) if spec is not None else None)
+    if plan is not None:
+        meta["slots"] = plan.slot_manifest()
+    with span("checkpoint", op="save", step=step):
+        return manager.save(root, step, state, meta=meta, keep_n=keep_n)
+
+
+def restore_state(root, compiled: CompiledPipeline, step: int | None = None
+                  ) -> tuple[PipelineState, dict]:
+    """Load a checkpointed ``PipelineState`` into ``compiled``'s state
+    template, on its device (default: the latest step under ``root``) →
+    ``(state, meta)``. A checkpoint of another spec, or of a pipeline
+    whose slots churned differently, is a ``SpecError``: resuming under
+    other sampling semantics or slot routing would silently change every
+    answer."""
+    from repro_torch.checkpoint import manager
+    from repro_torch.obs.trace import span
+
+    if step is None:
+        step = manager.latest_step(root)
+        if step is None:
+            raise SpecError(f"no pipeline checkpoints under {root!r}")
+    # The manifest first: a slot-configuration mismatch must fail with an
+    # actionable error, not a leaf-shape error.
+    meta = manager.read_manifest(root, step).get("meta", {})
+    saved = meta.get("pipeline_spec")
+    if saved is not None and saved != compiled.spec.to_dict():
+        raise SpecError(
+            f"checkpoint at {root!r} step {step} was written by a "
+            f"different PipelineSpec — recompile with "
+            f"PipelineSpec.from_dict(manifest['pipeline_spec']) or point "
+            f"at the right checkpoint directory")
+    saved_slots = meta.get("slots")
+    if saved_slots is not None and compiled.plan is not None:
+        current = compiled.plan.slot_manifest()
+        if saved_slots != current:
+            raise SpecError(
+                f"checkpoint at {root!r} step {step} was written under a "
+                f"different tenant-slot configuration "
+                f"(saved {saved_slots}, pipeline has {current}) — the "
+                f"pipelines churned differently since compile, so "
+                f"restoring would silently mis-route tenant answers. "
+                f"Admit/retire this pipeline to the saved live set (same "
+                f"order) or restore into a pipeline compiled from the "
+                f"checkpoint's spec before any churn.")
+    with span("checkpoint", op="restore", step=step):
+        return manager.restore(root, step, compiled.init())
 
 
 def compile(spec: PipelineSpec, *, device="cuda") -> CompiledPipeline:

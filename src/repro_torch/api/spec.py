@@ -151,6 +151,10 @@ class BudgetSpec:
                      f"budget.target_rel_error must be > 0, got "
                      f"{self.target_rel_error}")
 
+    @property
+    def policy(self) -> str:
+        return "fixed" if self.target_rel_error is None else "error_budget"
+
 
 @dataclasses.dataclass(frozen=True)
 class TenantSpec:
@@ -414,6 +418,13 @@ def build_plan(spec: PipelineSpec):
 
     return build_slotted_plan([(t.name, t.queries) for t in spec.tenants],
                               spec.topology.num_strata)
+
+
+def slot_bucket(n: int) -> int:
+    """Re-export of the slot bucketing rule (see ``query.compiler``)."""
+    from repro_torch.query.compiler import slot_bucket as _sb
+
+    return _sb(n)
 
 
 def resolve(spec: PipelineSpec) -> ResolvedPipeline:

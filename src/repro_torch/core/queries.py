@@ -1,16 +1,49 @@
-"""Linear queries over weighted samples: the root's histogram.
+"""Linear queries over weighted samples.
 
-The counterpart of ``repro.core.queries.weighted_histogram``: the
-estimated item count per value bin, a vector of linear queries, each
-with its plug-in variance. The bin sums are segment sums in item order
-on every device (the ``segment_sum`` kernel on the card).
+The counterpart of ``repro.core.queries``: any query of the form
+``Σ_k f(item_k)`` is estimated from the weighted sample as
+``Σ_i W_i^out · Σ_{k∈sample_i} f(item_k)`` — SUM, COUNT, MEAN, the
+histogram, and ``map_query``'s user functions — each a ``QueryResult``
+with its CLT variance (§III-D). The histogram's bin sums are segment sums
+in item order on every device (the ``segment_sum`` kernel on the card).
+``weighted_loss`` goes with training (ROADMAP Queue 1 item 13).
 """
 from __future__ import annotations
 
+from typing import Callable
+
 import torch
 
+from repro_torch.core import error as err
 from repro_torch.core.sampling import segment_sum
 from repro_torch.core.types import IntervalBatch, QueryResult, SampleResult
+
+
+def weighted_sum(batch: IntervalBatch, res: SampleResult,
+                 num_strata: int) -> QueryResult:
+    return err.approx_sum(batch.value, batch.stratum, res.selected, res.meta,
+                          num_strata)
+
+
+def weighted_mean(batch: IntervalBatch, res: SampleResult,
+                  num_strata: int) -> QueryResult:
+    return err.approx_mean(batch.value, batch.stratum, res.selected,
+                           res.meta, num_strata)
+
+
+def weighted_count(batch: IntervalBatch, res: SampleResult,
+                   num_strata: int) -> QueryResult:
+    """Estimated number of items in the original stream (f = 1)."""
+    return err.approx_sum(torch.ones_like(batch.value), batch.stratum,
+                          res.selected, res.meta, num_strata)
+
+
+def map_query(f: Callable[[torch.Tensor], torch.Tensor],
+              batch: IntervalBatch, res: SampleResult,
+              num_strata: int) -> QueryResult:
+    """Generic linear query ``Σ f(item)`` — the extension point for users."""
+    return err.approx_sum(f(batch.value), batch.stratum, res.selected,
+                          res.meta, num_strata)
 
 
 def weighted_histogram(batch: IntervalBatch, res: SampleResult,

@@ -391,10 +391,17 @@ class PallasFusedBackend:
                                    num_strata)
 
 
-_BACKENDS: dict[str, SamplerBackend] = {
-    b.name: b for b in (ArgsortBackend(), TopKBackend(), PallasBackend(),
-                        PallasFusedBackend())
-}
+_BACKENDS: dict[str, SamplerBackend] = {}
+
+
+def register_backend(backend: SamplerBackend) -> None:
+    _BACKENDS[backend.name] = backend
+
+
+register_backend(ArgsortBackend())
+register_backend(TopKBackend())
+register_backend(PallasBackend())
+register_backend(PallasFusedBackend())
 
 DEFAULT_BACKEND = "argsort"
 

@@ -61,3 +61,10 @@ class QueryResult(NamedTuple):
 
     estimate: torch.Tensor
     variance: torch.Tensor
+
+    def bound(self, sigmas: float = 2.0) -> torch.Tensor:
+        """``sigmas · √max(variance, 0)`` (the 68-95-99.7 rule), the root
+        correctly rounded as the reference's is (``sampling.sqrt_rn``)."""
+        from repro_torch.core.sampling import sqrt_rn
+
+        return sigmas * sqrt_rn(torch.clamp_min(self.variance, 0.0))

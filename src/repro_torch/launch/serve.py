@@ -1,22 +1,34 @@
-"""Serving launcher, one-shot mode: the ApproxIoT telemetry plane over an
-inference fleet.
+"""Serving launcher: the ApproxIoT telemetry plane over an inference
+fleet, in two modes — the port of ``repro.launch.serve``.
 
-The port of ``repro.launch.serve``'s one-shot mode. Batched prefill and
-greedy decode of a model of the zoo (random weights from a seed), then
-every serving batch's per-request latency records become one tick of
-ingest into the emulated edge hierarchy (2 edge aggregators → 1 root) on
-a compiled pipeline (``repro_torch.compile``), where the dashboard's
-standing queries (request count → QPS, mean latency, p50/p99 via the
-quantile sketch) are a query tenant answered at the root every window.
+**One-shot** (default): batched prefill and greedy decode of a model of
+the zoo (random weights from a seed), then every serving batch's
+per-request latency records become one tick of ingest into the emulated
+edge hierarchy (2 edge aggregators → 1 root) on a compiled pipeline
+(``repro_torch.compile``), where the dashboard's standing queries
+(request count → QPS, mean latency, p50/p99 via the quantile sketch) are
+a query tenant answered at the root every window. ``--hot-admit`` admits
+an ``slo`` tenant half way through the epoch (a state edit), then
+retires and re-admits it, and prints what the program cache built.
+
+**Continuous** (``--serve-loop``): the same telemetry plane behind the
+always-on ``repro_torch.serve.StreamingExecutor`` — subscribed sources
+feed bounded per-shard queues (``--backpressure`` policy), ingest is
+double-buffered, and every root window publishes straggler-tolerantly:
+late shards yield *partial* answers with Eq. 9-widened bounds and their
+data folds into the next window. The loop registry adds the recency
+queries (sliding-window quantiles, decayed heavy hitters); ``stop()``
+drains the queues clean. ``--inject-straggler`` holds one edge shard
+back for an epoch to show the partial-window path.
+
 Everything runs on the CUDA card unless ``--device cpu`` is asked for.
-
-Not ported yet, and raising with the ROADMAP item that ports them:
-``--hot-admit`` (Queue 1 item 7), ``--mesh`` (item 12) and the
-continuous ``--serve-loop`` mode (items 10 and 11).
+``--mesh`` is not ported yet and raises, naming ROADMAP Queue 1 item 12.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \\
         --requests 64 --decode-len 16
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --serve-loop \\
+        --duration 5 --inject-straggler --device cpu
 """
 from __future__ import annotations
 
@@ -40,17 +52,9 @@ from repro_torch.query.registry import QueryRegistry
 NUM_CLASSES = 4          # request classes = telemetry strata
 EDGE_NODES = 2           # telemetry aggregators in front of the root
 
-_NOT_PORTED = {
-    "hot_admit": "--hot-admit (tenant admit/retire on the live plane) is "
-                 "not ported yet: ROADMAP.md Queue 1 item 7",
-    "mesh": "--mesh (the telemetry plane on a device mesh) is not ported "
-            "yet: ROADMAP.md Queue 1 item 12 ports it to torch.distributed",
-    "serve_loop": "--serve-loop (the continuous serve plane) is not ported "
-                  "yet: ROADMAP.md Queue 1 items 10 (serve/executor.py) and "
-                  "11 (its CLI mode)",
-}
-_SERVE_LOOP_FLAGS = ("duration", "tick_interval", "backpressure",
-                     "queue_capacity", "inject_straggler")
+_MESH_NOT_PORTED = ("--mesh (the telemetry plane on a device mesh) is not "
+                    "ported yet: ROADMAP.md Queue 1 item 12 ports it to "
+                    "torch.distributed")
 
 
 def dashboard_registry() -> QueryRegistry:
@@ -132,8 +136,12 @@ def main(argv=None):
     ap.add_argument("--decode-len", type=int, default=16)
     ap.add_argument("--telemetry-fraction", type=float, default=0.25)
     ap.add_argument("--hot-admit", action="store_true",
-                    help="tenant churn on the live telemetry plane: not "
-                         "ported yet (ROADMAP.md Queue 1 item 7)")
+                    help="demo tenant churn on the live telemetry plane: "
+                         "serve half the epoch with the dashboard tenant "
+                         "only, hot-admit an 'slo' tenant mid-stream (a "
+                         "state edit, not a recompile), answer its queries "
+                         "over the second half, then retire + re-admit it "
+                         "and print what the program cache built")
     ap.add_argument("--mesh", type=int, default=None, metavar="N",
                     help="the telemetry plane on an N-device mesh: not "
                          "ported yet (ROADMAP.md Queue 1 item 12)")
@@ -153,8 +161,12 @@ def main(argv=None):
                     help="write the host span tracer's Chrome/Perfetto "
                          "trace.json to PATH")
     ap.add_argument("--serve-loop", action="store_true",
-                    help="continuous mode: not ported yet (ROADMAP.md "
-                         "Queue 1 items 10 and 11)")
+                    help="continuous mode: run the telemetry plane behind "
+                         "the always-on repro_torch.serve.StreamingExecutor "
+                         "(bounded queues, double-buffered ingest, "
+                         "straggler-tolerant windows) instead of one "
+                         "one-shot epoch; --requests/--batch set the "
+                         "epoch length in ticks")
     ap.add_argument("--duration", type=float, default=5.0, metavar="SEC",
                     help="serve-loop: wall-clock seconds to pump before "
                          "draining")
@@ -169,7 +181,9 @@ def main(argv=None):
                     help="serve-loop: per-shard bounded queue capacity")
     ap.add_argument("--inject-straggler", action="store_true",
                     help="serve-loop: hold one edge shard's deliveries "
-                         "for a full epoch")
+                         "for a full epoch so partial windows with "
+                         "widened bounds publish, then fold the late "
+                         "data into the next window")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="where the model and the telemetry plane run "
                          "(default: the CUDA card; it raises without one)")
@@ -182,19 +196,12 @@ def main(argv=None):
         ap.error(f"--requests {args.requests} < --batch {args.batch}: "
                  f"no serving batch would run (requests are served in "
                  f"whole batches)")
-    for flag in ("serve_loop", "hot_admit"):
-        if getattr(args, flag):
-            raise ValueError(_NOT_PORTED[flag])
-    # The serve loop's own options have no behaviour here: set, they ask
-    # for the serve loop.
-    for flag in _SERVE_LOOP_FLAGS:
-        if getattr(args, flag) != ap.get_default(flag):
-            raise ValueError(f"--{flag.replace('_', '-')} belongs to "
-                             + _NOT_PORTED["serve_loop"])
     if args.mesh is not None:
-        raise ValueError(_NOT_PORTED["mesh"])
+        raise ValueError(_MESH_NOT_PORTED)
 
     dev = resolve_device(args.device)
+    if args.serve_loop:
+        return _serve_loop(args, dev)
     cfg = registry.get_config(args.arch)
     if args.smoke:
         cfg = cfg.reduced()
@@ -230,31 +237,78 @@ def main(argv=None):
     with span("ingest", ticks=len(tick_records)):
         batch = S.ticks_to_ingest(tick_records, n_nodes=EDGE_NODES,
                                   width=capacity)
-    # --metrics-every N slices the epoch into N-tick chunks and exposes
-    # the /metrics surface between them; without it the one chunk is the
-    # whole epoch.
-    n_ticks = len(batch.values)
-    step = max(args.metrics_every or n_ticks, 1)
-    rows = []
-    for s0 in range(0, n_ticks, step):
-        s1 = min(s0 + step, n_ticks)
-        with span("epoch_dispatch", ticks=s1 - s0):
-            state, wa = pipe.run_epoch(
-                state, pipe.default_key, batch.values[s0:s1],
-                batch.strata[s0:s1], batch.counts[s0:s1])
-        with span("block_until_ready"):
-            _sync(dev)
-        rows.extend(pipe.rows(wa))
-        if args.metrics_every:
-            print(f"--- metrics after {s1}/{n_ticks} ticks ---")
-            print(metrics_text(pipeline=pipe, state=state,
-                               tracer=get_tracer()))
+    if args.hot_admit:
+        from repro_torch.api.pipeline import program_cache_stats
+
+        h = max(1, len(tick_records) // 2)
+        with span("epoch_dispatch", ticks=h):
+            state, wa_a = pipe.run_epoch(state, pipe.default_key,
+                                         batch.values[:h], batch.strata[:h],
+                                         batch.counts[:h])
+        rows_a = pipe.rows(wa_a)
+        m0 = program_cache_stats()["misses"]
+        slo = (QueryRegistry().register_count("n")
+               .register_mean("mean_ms")
+               .register_quantile("p999_ms", qs=(0.999,), capacity=128)
+               .as_tenant("slo"))
+        # hot admit: a slot edit on the carried state, answers resume
+        # mid-stream; the dashboard tenant's sketches are untouched
+        pipe2, state = pipe.admit(state, slo)
+        with span("epoch_dispatch", ticks=len(batch.values) - h):
+            state, wa_b = pipe2.run_epoch(state, pipe2.default_key,
+                                          batch.values[h:], batch.strata[h:],
+                                          batch.counts[h:])
+        rows_b = pipe2.rows(wa_b)
+        m1 = program_cache_stats()["misses"]
+        pipe3, state = pipe2.retire(state, "slo")
+        pipe4, state = pipe3.admit(state, slo)
+        m2 = program_cache_stats()["misses"]
+        slo_n = float(sum(pipe2.answer(r["answers"], "n", tenant="slo")[0]
+                          for r in rows_b))
+        p999 = float(pipe2.answer(rows_b[-1]["answers"], "p999_ms",
+                                  tenant="slo")[0])
+        print(f"hot-admit 'slo' tenant after {h}/{len(tick_records)} "
+              f"ticks: {len(rows_b)} windows answered mid-stream "
+              f"({slo_n:.0f} requests seen, p99.9 ≈ {p999:.2f} ms)")
+        print(f"  churn cost: admit into a new slot group traced "
+              f"{m1 - m0} program(s); retire + re-admit into the warm "
+              f"slot traced {m2 - m1} (plan cache: "
+              f"{program_cache_stats()['hits']} hits)")
+        rows = rows_a + rows_b
+        row_pipes = [pipe] * len(rows_a) + [pipe2] * len(rows_b)
+        pipe = pipe4
+    else:
+        # --metrics-every N slices the epoch into N-tick chunks and
+        # exposes the /metrics surface between them; without it the one
+        # chunk is the whole epoch.
+        n_ticks = len(batch.values)
+        step = max(args.metrics_every or n_ticks, 1)
+        rows = []
+        for s0 in range(0, n_ticks, step):
+            s1 = min(s0 + step, n_ticks)
+            with span("epoch_dispatch", ticks=s1 - s0):
+                state, wa = pipe.run_epoch(
+                    state, pipe.default_key, batch.values[s0:s1],
+                    batch.strata[s0:s1], batch.counts[s0:s1])
+            with span("block_until_ready"):
+                _sync(dev)
+            rows.extend(pipe.rows(wa))
+            if args.metrics_every:
+                print(f"--- metrics after {s1}/{n_ticks} ticks ---")
+                print(metrics_text(pipeline=pipe, state=state,
+                                   tracer=get_tracer()))
+        row_pipes = [pipe] * len(rows)
+    # rows from before and after a hot admit carry different layouts:
+    # answer each row through the pipeline that produced it
+    pipe_of = {id(r): p for p, r in zip(row_pipes, rows)}
 
     def a(name, row):
-        return pipe.answer(row["answers"], name, tenant="dashboard")
+        return pipe_of[id(row)].answer(row["answers"], name,
+                                       tenant="dashboard")
 
     def bnd(name, row):
-        return pipe.answer(row["bounds"], name, tenant="dashboard")
+        return pipe_of[id(row)].answer(row["bounds"], name,
+                                       tenant="dashboard")
 
     # CLT queries aggregate across windows; the quantile sketch is
     # continuous, so the last window answers over every request served.
@@ -293,6 +347,97 @@ def main(argv=None):
         get_tracer().save(args.trace)
         print(f"  wrote {args.trace}")
     return mean_est, exact_mean
+
+
+def _serve_loop(args, dev):
+    """Continuous mode: the telemetry plane behind the streaming executor
+    (see the module doc). Returns the executor's final stats."""
+    from repro_torch.serve import (LateShardSource, StreamingExecutor,
+                                   SyntheticSource)
+
+    epoch_ticks = args.requests // args.batch
+    capacity = max(64, args.batch)
+    pipe = api.compile(telemetry_spec(capacity, args.telemetry_fraction,
+                                      telemetry=args.telemetry,
+                                      registry_fn=serve_registry),
+                       device=dev)
+    # Per-shard synthetic request-latency sources: NUM_CLASSES request
+    # classes with distinct latency profiles (ms); class = stratum.
+    per_class = max(2, args.batch // (EDGE_NODES * NUM_CLASSES))
+    sources = [SyntheticSource(
+        shard, specs=[S.SubstreamSpec("gaussian",
+                                      (20.0 * 2 ** c, 2.0 * 2 ** c),
+                                      per_class)
+                      for c in range(NUM_CLASSES)], seed=shard)
+        for shard in range(EDGE_NODES)]
+    if args.inject_straggler:
+        # Hold the last shard's deliveries for one full epoch starting
+        # at the second: the affected windows publish partial (widened
+        # bounds) and the backlog folds into the following window.
+        sources[-1] = LateShardSource(sources[-1], epoch_ticks,
+                                      2 * epoch_ticks)
+    ex = StreamingExecutor(epoch_ticks=epoch_ticks, width=capacity,
+                           queue_capacity=args.queue_capacity,
+                           policy=args.backpressure)
+    ex.start(pipe, sources)
+    t0 = time.time()
+    ticks = 0
+    with span("serve_loop", duration=args.duration):
+        while time.time() - t0 < args.duration:
+            tick_t0 = time.time()
+            ex.pump()
+            ticks += 1
+            sleep = args.tick_interval - (time.time() - tick_t0)
+            if sleep > 0:
+                time.sleep(sleep)
+    summary = ex.stop()
+    wall = time.time() - t0
+    print(f"serve-loop: {ticks} ticks in {wall:.1f}s — "
+          f"{summary['epochs']} epochs of {epoch_ticks} ticks, "
+          f"backpressure={args.backpressure}"
+          + (", straggler injected" if args.inject_straggler else ""))
+    print(f"  windows published    {summary['windows_published']} "
+          f"({summary['windows_partial']} partial, bounds widened 1/α)")
+    print(f"  queue accounting     in {summary['queue_items_in']}, "
+          f"dropped {summary['queue_items_dropped']}, deferred "
+          f"{summary['queue_deferred']}, high-watermark "
+          f"{summary['queue_high_watermark']}, drained to depth "
+          f"{max(summary['queue_depth'], default=0)}")
+    print(f"  ingest/dispatch overlap {summary['overlap_fraction']:.2f} "
+          f"(measured while a device epoch was in flight)")
+    print(f"  window latency       p50 {summary['latency_p50'] * 1e3:.1f} "
+          f"ms / p99 {summary['latency_p99'] * 1e3:.1f} ms "
+          f"(arrival → published answer)")
+    if ex.published:
+        last = ex.published[-1]
+        p50, p99 = last.raw["answers"][
+            slice(*_qslice(pipe, "latency_q_ms"))]
+        r50, r99 = last.raw["answers"][
+            slice(*_qslice(pipe, "latency_q_recent_ms"))]
+        print(f"  latency p50/p99 ms   stream-so-far ≈ {float(p50):.1f} / "
+              f"{float(p99):.1f}; recent windows ≈ {float(r50):.1f} / "
+              f"{float(r99):.1f}")
+    snap = obs_telemetry.snapshot(ex.state)
+    if snap is not None:
+        print(f"  telemetry            {snap['late_shards']} late shards, "
+              f"{snap['widened_windows']} widened windows "
+              f"(in-graph counters)")
+    if args.metrics_dump:
+        text = metrics_text(pipeline=pipe, state=ex.state,
+                            tracer=get_tracer(), straggler=ex.monitor,
+                            executor=ex)
+        with open(args.metrics_dump, "w") as f:
+            f.write(text)
+        print(f"  wrote {args.metrics_dump}")
+    if args.trace:
+        get_tracer().save(args.trace)
+        print(f"  wrote {args.trace}")
+    return summary
+
+
+def _qslice(pipe, name: str) -> tuple[int, int]:
+    o, w, _ = pipe.query_layout()[name]
+    return o, o + w
 
 
 if __name__ == "__main__":

@@ -4,9 +4,10 @@ The port's own copy of ``repro.obs.metrics``: a small counter/gauge
 registry rendering the Prometheus text format
 (https://prometheus.io/docs/instrumenting/exposition_formats/), plus
 :func:`render_pipeline_metrics`, which folds the telemetry leaves, the
-span tracer, the plan and program cache stats and the budget controller
-into one snapshot (what ``launch.analytics`` reports under
-``metrics``), with the reference's metric names.
+span tracer, the plan and program cache stats, the budget controller,
+the straggler monitor and the serve plane's executor into one snapshot
+(what ``launch.analytics`` reports under ``metrics``), with the
+reference's metric names.
 
 :func:`parse_prometheus_text` is the inverse, for tests.
 """
@@ -155,11 +156,15 @@ def _split_labels(s: str) -> list[str]:
 
 
 def render_pipeline_metrics(pipeline=None, state=None, tracer=None,
-                            controller=None,
+                            controller=None, straggler=None,
+                            executor=None,
                             extra: dict | None = None) -> MetricsRegistry:
     """Aggregate every observability source into one registry. All
-    arguments are optional; ``extra`` is a flat ``{gauge_name: value}``
-    dict of driver-specific numbers."""
+    arguments are optional. ``straggler`` is a
+    ``obs.telemetry.StragglerMonitor``, ``executor`` a
+    ``repro_torch.serve.StreamingExecutor`` (anything with its ``stats()``
+    dict), which adds the ``repro_serve_*`` families; ``extra`` is a flat
+    ``{gauge_name: value}`` dict of driver-specific numbers."""
     from repro_torch.api.pipeline import program_cache_stats
     from repro_torch.obs.telemetry import snapshot, tenant_rel_bounds
     from repro_torch.query.compiler import plan_cache_stats
@@ -251,14 +256,60 @@ def render_pipeline_metrics(pipeline=None, state=None, tracer=None,
             reg.gauge("repro_budget_last_latency_seconds", ll,
                       "Last epoch latency fed to the budget controller")
 
+    if straggler is not None:
+        reg.counter("repro_straggler_monitor_late_shards_total",
+                    straggler.late_shards_total,
+                    "StragglerMonitor running late-shard total")
+        reg.counter("repro_straggler_monitor_widened_windows_total",
+                    straggler.widened_windows_total,
+                    "StragglerMonitor running widened-window total")
+
+    if executor is not None:
+        st = executor.stats()
+        for shard, depth in enumerate(st["queue_depth"]):
+            reg.gauge("repro_serve_queue_depth", depth,
+                      "Current bounded ingest-queue depth per shard",
+                      shard=str(shard))
+        reg.gauge("repro_serve_queue_high_watermark",
+                  st["queue_high_watermark"],
+                  "Deepest any shard queue has been")
+        reg.counter("repro_serve_queue_items_total", st["queue_items_in"],
+                    "Items admitted into the shard queues")
+        reg.counter("repro_serve_queue_dropped_total",
+                    st["queue_items_dropped"],
+                    "Items shed by the backpressure policy")
+        reg.counter("repro_serve_queue_deferred_total", st["queue_deferred"],
+                    "Offers refused by a full queue (policy=block)")
+        reg.counter("repro_serve_staged_items_total", st["staged_items"],
+                    "Items staged into epoch host buffers")
+        reg.counter("repro_serve_truncated_items_total",
+                    st["truncated_items"],
+                    "Items prefix-truncated at the staging width")
+        reg.gauge("repro_serve_ingest_overlap_fraction",
+                  st["overlap_fraction"],
+                  "Measured share of ingest time overlapping an "
+                  "in-flight device epoch")
+        reg.counter("repro_serve_windows_published_total",
+                    st["windows_published"],
+                    "Windows published by the serve plane")
+        reg.counter("repro_serve_windows_partial_total",
+                    st["windows_partial"],
+                    "Windows published partial (late shards or shed "
+                    "load; bounds widened by 1/alpha)")
+        for q, v in (("p50", st["latency_p50"]), ("p99", st["latency_p99"])):
+            reg.gauge("repro_serve_window_latency_seconds", v,
+                      "Arrival-to-publish window latency", quantile=q)
+
     for name, value in (extra or {}).items():
         reg.gauge(name, float(value))
     return reg
 
 
 def metrics_text(pipeline=None, state=None, tracer=None, controller=None,
+                 straggler=None, executor=None,
                  extra: dict | None = None) -> str:
     """One-call Prometheus-text snapshot of everything observable."""
     return render_pipeline_metrics(
         pipeline=pipeline, state=state, tracer=tracer,
-        controller=controller, extra=extra).to_text()
+        controller=controller, straggler=straggler, executor=executor,
+        extra=extra).to_text()

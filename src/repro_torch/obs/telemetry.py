@@ -7,7 +7,10 @@ sampler's per-stratum ``c``/``y``), draws no randomness, and so leaves
 samples and answers bitwise the same with telemetry on or off.
 ``snapshot`` reads them back with the derived signals,
 ``tenant_rel_bounds`` attributes them per tenant and ``reset`` zeroes
-them. The straggler parts of the reference wait for the serve plane.
+them. Host-side counters the device cannot see (the serve plane's
+straggler deadlines, ``runtime.straggler``) fold into the same leaves
+between epochs through ``fold_stragglers`` and ``StragglerMonitor``: a
+state edit of two int32 scalars on the state's device.
 """
 from __future__ import annotations
 
@@ -15,6 +18,9 @@ from typing import Any, NamedTuple
 
 import numpy as np
 import torch
+
+from repro_torch.runtime.straggler import (DeadlineTracker, StragglerConfig,
+                                           calibrate_weights)
 
 
 class EpochTelemetry(NamedTuple):
@@ -32,8 +38,9 @@ class EpochTelemetry(NamedTuple):
         slot's relative bound ``bound/max(|answer|, 1e-9)``, one slot per
         column of the tenant plan's padded answer vector (``n_out`` of its
         core; empty without tenants).
-    ``merge_bytes`` f32[], ``late_shards``/``widened_windows`` i32[] — the
-        mesh and straggler counters; zero in this port.
+    ``merge_bytes`` f32[] — the mesh counter; zero in this port.
+    ``late_shards``/``widened_windows`` i32[] — host-folded straggler
+        accounting (see ``StragglerMonitor``).
     """
 
     items_in: Any
@@ -145,8 +152,72 @@ def reset(state):
     tel = _leaf(state)
     if tel is None:
         return state
-    tel = EpochTelemetry(*(torch.zeros_like(v) for v in tel))
+    return _replace_leaf(state,
+                         EpochTelemetry(*(torch.zeros_like(v) for v in tel)))
+
+
+def _replace_leaf(state, tel: EpochTelemetry):
     tree = getattr(state, "tree", None)
     if tree is not None:
         return state._replace(tree=tree._replace(telemetry=tel))
     return state._replace(telemetry=tel)
+
+
+def fold_stragglers(state, late_shards: int, widened_windows: int):
+    """Fold host-side straggler accounting into the telemetry leaves: an
+    add to two int32 scalars on the state's device, the leaves keeping
+    their shapes. No-op when telemetry is off or there is nothing to
+    add."""
+    tel = _leaf(state)
+    if tel is None or (not late_shards and not widened_windows):
+        return state
+    tel = tel._replace(
+        late_shards=tel.late_shards + int(late_shards),
+        widened_windows=tel.widened_windows + int(widened_windows))
+    return _replace_leaf(state, tel)
+
+
+class StragglerMonitor:
+    """``runtime.straggler``'s deadline accounting wired into the
+    telemetry plane.
+
+    :meth:`observe` takes one window's per-shard arrival latencies and
+    returns ``DeadlineTracker``'s present-mask; it accumulates a
+    late-shard count and a widened-window count (a window published with
+    absent shards has its bounds widened by Eq. 9's ``1/α``).
+    :meth:`fold_into` moves the deltas since the last fold into a state's
+    telemetry leaves; the running totals serve the metrics either way."""
+
+    def __init__(self, num_shards: int, cfg=None):
+        self.cfg = cfg or StragglerConfig()
+        self.tracker = DeadlineTracker(int(num_shards), self.cfg)
+        self.late_shards_total = 0
+        self.widened_windows_total = 0
+        self._pending_late = 0
+        self._pending_widened = 0
+
+    def observe(self, shard_latencies) -> np.ndarray:
+        """Record one window's per-shard latencies; returns the
+        present-mask (all true below quorum)."""
+        present = self.tracker.observe(
+            np.asarray(shard_latencies, np.float64))
+        late = int((~present).sum())
+        self.late_shards_total += late
+        self._pending_late += late
+        if late > 0:
+            self.widened_windows_total += 1
+            self._pending_widened += 1
+        return present
+
+    def calibrate(self, weight: np.ndarray,
+                  present: np.ndarray) -> np.ndarray:
+        """Eq. 9 recalibration of the arrived shards' weights
+        (``straggler.calibrate_weights``)."""
+        return calibrate_weights(weight, present)
+
+    def fold_into(self, state):
+        """Apply the deltas accumulated since the last fold to a state's
+        telemetry leaves; returns the (possibly unchanged) state."""
+        late, widened = self._pending_late, self._pending_widened
+        self._pending_late = self._pending_widened = 0
+        return fold_stragglers(state, late, widened)

@@ -27,8 +27,10 @@ active mask (the reference's ``vmap`` over slots is a loop over slots
 here, with the same masking law: an active slot's answers and state are
 untouched, an inactive one freezes and answers zeros).
 ``SlottedTenantPlan`` maps tenant names onto slots and the padded
-answer vector onto the public one. ``evaluate_spmd`` (the mesh path)
-and ``MultiTenantPlan`` are not ported.
+answer vector onto the public one; its ``admit``/``retire`` return a new
+plan and a qstate transform (tenant churn as a state edit) and
+``slot_manifest`` describes the slots for checkpoints. ``evaluate_spmd``
+(the mesh path) and ``MultiTenantPlan`` are not ported.
 """
 from __future__ import annotations
 
@@ -63,11 +65,6 @@ def stratum_stats(batch: IntervalBatch, num_strata: int):
     mean = s1 / safe
     var = torch.clamp_min(fma(-mean, mean, s2 / safe), 0.0)
     return y, mean, sqrt_rn(var)
-
-
-def _bound(q) -> torch.Tensor:
-    """``QueryResult.bound(2.0)`` of the reference: 2·√max(var, 0)."""
-    return 2.0 * sqrt_rn(torch.clamp_min(q.variance, 0.0))
 
 
 def _linspace_const(lo: float, hi: float, num: int) -> np.ndarray:
@@ -179,7 +176,7 @@ class CompiledQueryPlan:
             st = state[i]
             if sp.kind == "sum":
                 q = err.approx_sum_from_moments(y, s1, s2, res.meta)
-                a, b, st2 = q.estimate[None], _bound(q)[None], ()
+                a, b, st2 = q.estimate[None], q.bound(2.0)[None], ()
             elif sp.kind == "count":
                 # The HT count is exact per stratum given the metadata.
                 a = (fma_dot(y, res.meta.weight) if ht_total is None
@@ -188,13 +185,13 @@ class CompiledQueryPlan:
             elif sp.kind == "mean":
                 q = err.approx_mean_from_moments(y, s1, s2, res.meta,
                                                  ht_total)
-                a, b, st2 = q.estimate[None], _bound(q)[None], ()
+                a, b, st2 = q.estimate[None], q.bound(2.0)[None], ()
             elif sp.kind == "histogram":
                 edges = self._const(
                     sp.name, lambda sp=sp: _linspace_const(sp.lo, sp.hi,
                                                            sp.bins + 1), dev)
                 q = weighted_histogram(batch, res, x, edges)
-                a, b, st2 = q.estimate, _bound(q), ()
+                a, b, st2 = q.estimate, q.bound(2.0), ()
             elif sp.kind == "quantile":
                 qs = self._const(sp.name, lambda sp=sp: np.asarray(
                     sp.qs, np.float32), dev)
@@ -485,6 +482,98 @@ class SlottedTenantPlan:
         """Host-side exact answers in the PUBLIC layout."""
         return np.concatenate([self.plan_for(t).exact_answers(values, strata)
                                for t in self.tenant_names])
+
+    def slot_manifest(self) -> dict:
+        """JSON-able description of the slot configuration, which the
+        checkpoint manifest records so that a restore into a differently
+        churned pipeline fails loudly instead of mis-routing answers."""
+        groups = []
+        for gi, (tmpl, n) in enumerate(self.core.groups):
+            sig = [f"{sp.kind}:{sp.out_width}" for sp in tmpl.specs]
+            slots = {name: si for name, _, g, si in self.entries if g == gi}
+            groups.append({"signature": sig, "n_slots": int(n),
+                           "slots": slots})
+        return {"groups": groups}
+
+    def admit(self, name: str, specs) -> tuple:
+        """→ ``(new_plan, transform)``: ``transform(qstate)`` activates the
+        new tenant's slot with its row reset to the template's init state
+        (the slot may hold a retired tenant's frozen sketch). A tenant of
+        a new signature opens a group of one slot; into a full group it
+        doubles the group's slot bucket. The qstate given is left as it
+        was."""
+        name = str(name)
+        specs = tuple(specs)
+        if name in self._by_name:
+            raise ValueError(f"tenant {name!r} already admitted")
+        if not specs:
+            raise ValueError(f"tenant {name!r} has an empty registry")
+        sig = canonical_signature(specs)
+        groups = [(tuple(t.specs), n) for t, n in self.core.groups]
+        gi = next((i for i, (s, _) in enumerate(groups) if s == sig), None)
+        if gi is None:
+            gi, si, grow = len(groups), 0, 0
+            groups.append((sig, slot_bucket(1)))
+            core = slot_plan_core(groups, self.num_strata)
+        else:
+            used = {e[3] for e in self.entries if e[2] == gi}
+            n_now = groups[gi][1]
+            free = [s for s in range(n_now) if s not in used]
+            if free:
+                si, core, grow = free[0], self.core, 0
+            else:
+                si, grow = n_now, n_now   # the first slot of the padding
+                groups[gi] = (sig, n_now * 2)
+                core = slot_plan_core(groups, self.num_strata)
+        tmpl, n = core.groups[gi]
+
+        def transform(qstate):
+            dev = qstate[0][0].device
+            row = tmpl.init_state(dev)
+            qstate = list(qstate)
+            if gi == len(qstate):
+                mask = torch.zeros(n, dtype=torch.bool, device=dev)
+                st = _tree_map(lambda v: v.expand((n,) + v.shape).clone(),
+                               row)
+            else:
+                mask, st = qstate[gi]
+                if grow:
+                    mask = torch.cat([mask, mask.new_zeros(grow)])
+                    st = _tree_map(lambda a, v: torch.cat(
+                        [a, v.expand((grow,) + v.shape)]), st, row)
+                else:
+                    mask, st = mask.clone(), _tree_map(torch.clone, st)
+                # reset the slot's row: admission must match a fresh compile
+                _tree_map(lambda a, v: a[si].copy_(v), st, row)
+            mask[si] = True
+            qstate[gi:gi + 1] = [(mask, st)]
+            return tuple(qstate)
+
+        entries = self.entries + ((name, specs, gi, si),)
+        return SlottedTenantPlan(core, entries), transform
+
+    def retire(self, name: str) -> tuple:
+        """→ ``(new_plan, transform)``: ``transform(qstate)`` flips the
+        slot's mask bit off. The row's state freezes in place (a bucket
+        never shrinks; a later ``admit`` reuses the slot)."""
+        if name not in self._by_name:
+            raise KeyError(f"unknown tenant {name!r}; "
+                           f"registered: {list(self.tenant_names)}")
+        if len(self.entries) == 1:
+            raise ValueError(
+                f"cannot retire {name!r}: it is the last live tenant")
+        _, _, gi, si = self._by_name[name]
+        entries = tuple(e for e in self.entries if e[0] != name)
+
+        def transform(qstate):
+            qstate = list(qstate)
+            mask, st = qstate[gi]
+            mask = mask.clone()
+            mask[si] = False
+            qstate[gi] = (mask, st)
+            return tuple(qstate)
+
+        return SlottedTenantPlan(self.core, entries), transform
 
 
 def build_slotted_plan(tenants, num_strata: int) -> SlottedTenantPlan:

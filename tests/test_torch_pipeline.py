@@ -9,6 +9,7 @@ carried from the reference to the port, the device rule, and that the
 port never loads JAX or the reference package.
 """
 import ast
+import dataclasses
 import os
 import subprocess
 import sys
@@ -210,6 +211,22 @@ def test_spec_round_trip_and_unported_parts():
         P.compile(spec, device="cpu").clamp_budgets([1.0])
 
 
+def test_spec_policy_slot_bucket_and_paper_config_are_the_reference():
+    from repro.api import spec as JSP
+    from repro.configs import approxiot_paper as JCFG
+    from repro_torch.api import spec as TSP
+    from repro_torch.configs import approxiot_paper as TCFG
+
+    for target in (None, 0.05):
+        assert (P.BudgetSpec(target_rel_error=target).policy
+                == J.BudgetSpec(target_rel_error=target).policy)
+    assert [TSP.slot_bucket(n) for n in range(0, 70)] == [
+        JSP.slot_bucket(n) for n in range(0, 70)]
+    assert TCFG.CONFIG == TCFG.PipelineConfig()
+    assert dataclasses.asdict(TCFG.CONFIG) == dataclasses.asdict(JCFG.CONFIG)
+    assert TCFG.CONFIG.sample_sizes() == JCFG.CONFIG.sample_sizes()
+
+
 def test_compile_defaults_to_cuda_and_raises_without_it(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -233,7 +250,10 @@ def test_port_never_imports_jax_or_the_reference():
     files = sorted((REPO / "src" / "repro_torch").rglob("*.py"))
     assert REPO / "src" / "repro_torch" / "query" / "compiler.py" in files
     assert REPO / "src" / "repro_torch" / "launch" / "analytics.py" in files
-    for mod in ("launch/serve.py", "models/model.py", "models/layers.py",
+    for mod in ("launch/serve.py", "serve/executor.py", "serve/queues.py",
+                "serve/staging.py", "serve/windows.py", "serve/sources.py",
+                "checkpoint/manager.py", "runtime/straggler.py",
+                "models/model.py", "models/layers.py",
                 "kernels/flash_attention/ops.py", "optim/train_step.py",
                 "configs/registry.py", "configs/smollm_135m.py"):
         assert REPO / "src" / "repro_torch" / mod in files, mod
@@ -261,7 +281,9 @@ def test_port_never_imports_jax_or_the_reference():
             "repro_torch.runtime.budget, repro_torch.obs.metrics, "
             "repro_torch.obs.trace, repro_torch.launch.serve, "
             "repro_torch.models.model, repro_torch.optim.train_step, "
-            "repro_torch.kernels.flash_attention.ops\n"
+            "repro_torch.kernels.flash_attention.ops, repro_torch.serve, "
+            "repro_torch.checkpoint, repro_torch.runtime.straggler, "
+            "repro_torch.configs.approxiot_paper\n"
             "from repro_torch.configs import registry\n"
             "[registry.get_config(n) for n in registry.ARCH_NAMES]\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
