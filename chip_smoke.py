@@ -71,7 +71,8 @@ Drives ``src/repro_torch`` only (nothing of JAX or of the JAX package):
    width (bf16, B 8, S 2048) through ``make_prefill_step`` with the
    flash kernel, launched once per layer (30), against the xla path, and
    an f32 copy (B 1, S 512) card against CPU; the serve CLI
-   (``repro_torch.launch.serve``) at the reference's defaults, and one
+   (``repro_torch.launch.serve``) at the reference's defaults but
+   ``SERVE_REQUESTS`` requests (16, not 64), and one
    f32 batch whose greedy tokens must be the CPU's. Then the serve
    plane: the testbed with the two tenants behind
    ``repro_torch.serve.StreamingExecutor`` (epochs of ``TICKS`` ticks,
@@ -86,9 +87,26 @@ Drives ``src/repro_torch`` only (nothing of JAX or of the JAX package):
    run for the executor's items/s, window latency p50/p99 and overlap
    fraction, and one profiled epoch; the serve CLI's ``--serve-loop``
    (also with ``--inject-straggler`` and ``--metrics-dump``) and
-   ``--hot-admit`` at their defaults, each printing the reference's
+   ``--hot-admit`` at their defaults (``--hot-admit`` with
+   ``SERVE_REQUESTS`` requests), each printing the reference's
    lines; a checkpoint saved after one epoch and restored into a fresh
-   compile, whose next epoch is bitwise the uninterrupted one;
+   compile, whose next epoch is bitwise the uninterrupted one. Then the
+   mesh data plane (``repro_torch.compile(spec, mesh=...)``, the
+   §III-E path): the testbed's 32,000 items a tick as one batch a
+   window (width 43,456, ``run_spmd_pipeline``'s), ``k8`` + ``dashboard``,
+   ``pallas_fused``, ``MESH_EPOCHS`` epochs of ``TICKS`` windows, on
+   ``torch.distributed`` rank processes: NCCL at min(cards, 4) ranks
+   (one card a rank) and gloo at 2 and 4 ranks sharing the card, each
+   against gloo CPU ranks at the same N — every rank's answers the same
+   bits, card against CPU bitwise but the sketch bounds
+   (``SKETCH_BOUND_RTOL``), every rank's sketch rows too, the exact
+   count bitwise at every N, the quantiles and heavy hitters as on the
+   single card, each rank's launches of every kernel of the path
+   counted, no collective operand above the summary model or a shard;
+   it prints the backend, N and the card count, and per run items/s,
+   the collectives' time and bytes a window against
+   ``summary_bytes_per_window``, and the device busy share of one
+   profiled epoch on rank 0;
 4. times each kernel at the main path's shapes beside its bound, its
    plain version and (where one exists) one PyTorch call computing the
    same function, as device time from the profiler's CUDA trace (and
@@ -121,6 +139,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -155,6 +174,10 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 # (B 32, S 32,768) is cut: its bf16 logits alone would be 103 GB.
 PREFILL_BATCH = 8
 PREFILL_SEQ = 2048
+# The serve CLI's one-shot runs (defaults and --hot-admit) serve 2 batches
+# of 8, not the default 64 requests: the decode loop is host-bound (≈ 30 s
+# for 64), and the mesh phase needs the time.
+SERVE_REQUESTS = 16
 # The pallas and xla prefill paths in bf16 round at different points (p
 # before P·V against the probabilities after normalisation) in each of 30
 # layers: the sound kernel reads argmax agreement 0.9516 and max abs
@@ -1253,10 +1276,11 @@ def run_prefill(dev, LAUNCHES, reset_launches) -> dict:
 
 
 def run_serve(dev, LAUNCHES, reset_launches) -> dict:
-    """Phase 3, the serve CLI at the reference's defaults on the card
-    (SmolLM-135M, 64 requests in batches of 8, prompt 64, decode 16), then
-    one batch (8 × prompt 16, decode 4) in f32 against the CPU: the same
-    greedy tokens."""
+    """Phase 3, the serve CLI on the card at the reference's defaults but
+    its depth (SmolLM-135M, batches of 8, prompt 64, decode 16;
+    SERVE_REQUESTS requests where the default is 64), then one batch (8 ×
+    prompt 16, decode 4) in f32 against the CPU: the same greedy
+    tokens."""
     import copy
     import dataclasses
 
@@ -1266,7 +1290,8 @@ def run_serve(dev, LAUNCHES, reset_launches) -> dict:
 
     reset_launches()
     t0 = time.perf_counter()
-    mean, exact = serve.main(["--arch", "smollm-135m"])
+    mean, exact = serve.main(["--arch", "smollm-135m", "--requests",
+                              str(SERVE_REQUESTS)])
     secs = time.perf_counter() - t0
     launches = dict(LAUNCHES)
     print(f"serve CLI on the card: {secs:.2f} s; launches {launches}")
@@ -1531,7 +1556,8 @@ def run_serve_plane(P, S, dev, qspec, LAUNCHES, reset_launches,
                     *SERVE_LOOP_LINES)
     if late["windows_partial"] < 1 or max(late["queue_depth"]) != 0:
         fail(f"serve CLI --inject-straggler: {late}")
-    lines_of(lambda: cli.main(["--hot-admit"]), *HOT_ADMIT_LINES)
+    lines_of(lambda: cli.main(["--hot-admit", "--requests",
+                               str(SERVE_REQUESTS)]), *HOT_ADMIT_LINES)
     with tempfile.TemporaryDirectory() as tmp:
         dump = str(Path(tmp) / "metrics.txt")
         lines_of(lambda: cli.main(["--serve-loop", "--duration", "2",
@@ -1565,6 +1591,341 @@ def run_serve_plane(P, S, dev, qspec, LAUNCHES, reset_launches,
           "into a fresh compile; epoch 2 resumed bitwise the uninterrupted "
           "one")
     print(f"serve plane part: {time.perf_counter() - t_plane:.1f} s")
+
+
+# ------------------------------------------------------------ mesh plane --
+# The §III-E data plane (``repro_torch.compile(spec, mesh=...)``) on the
+# testbed's stream: 8 sources of the four Gaussian sub-streams at 1,000
+# items a tick each (32,000 a tick), one flat batch a window as wide as
+# ``run_spmd_pipeline`` makes it, split over the ranks; k8 + dashboard;
+# MESH_EPOCHS epochs of TICKS windows (items/s from the last).
+MESH_EPOCHS = 2
+MESH_TIMEOUT_S = 300.0
+# The profiled epoch is 2 windows: a trace costs ≈ 0.7 ms of processing a
+# device operation (an epoch of 16 windows launches ≈ 75,000).
+PROFILED_WINDOWS = 2
+
+
+def mesh_width(n: int) -> int:
+    """``run_spmd_pipeline``'s item axis for 32,000 items a tick: the load
+    with 35% slack plus 256, padded to ``n``."""
+    width = int(1.35 * 32_000) + 256
+    return -(-width // n) * n
+
+
+def mesh_spec(P, S, A, n: int):
+    """The testbed's job on ``n`` ranks as ``run_spmd_pipeline`` builds it
+    (capacity = the width over ``n``, fraction 0.1, 4 strata, fair,
+    ``pallas_fused``), with the tenants k8 and dashboard and telemetry."""
+    from repro_torch.query import QueryRegistry as Q
+
+    return A.build_spec(
+        S.paper_gaussian(), fraction=0.1, capacity=mesh_width(n) // n,
+        num_strata=4, allocation="fair", sampler_backend="pallas_fused",
+        queries=(k8_registry(Q).as_tenant("k8"),
+                 serve_registry(Q).as_tenant("dashboard")),
+        telemetry=True)
+
+
+def mesh_ingest(S, width: int) -> list:
+    """MESH_EPOCHS epochs of (values, strata, counts) ``[TICKS, width]``:
+    each tick the 8 sources' items in source order, prefix-truncated."""
+    sources = [S.StreamSource(S.paper_gaussian(), seed=100 + i)
+               for i in range(8)]
+    out = []
+    for _ in range(MESH_EPOCHS):
+        b = S.batch_ingest(sources, TICKS, 1, width)
+        out.append((b.values[:, 0], b.strata[:, 0], b.counts[:, 0]))
+    return out
+
+
+def mesh_rank(job: dict) -> dict:
+    """One rank of the mesh phase (``spawn_ranks`` runs it in every rank
+    process): launch counts zeroed, then MESH_EPOCHS epochs, each timed
+    (the first with the kernels' and the communicator's first use);
+    their answers, this rank's sketch rows, its launches and collective
+    ledger; on a card, rank 0 profiles one more epoch of
+    PROFILED_WINDOWS windows (every rank runs it, the collectives need
+    them all)."""
+    import repro_torch as P
+    from repro_torch.data import stream as S
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch.mesh import make_data_mesh
+
+    clock = [("start", time.perf_counter())]
+    mesh = make_data_mesh(job["n"], device=job["device"],
+                          backend=job["backend"])
+    on_card = mesh.device.type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize(mesh.device)
+
+    pipe = P.compile(P.PipelineSpec.from_dict(job["spec"]), mesh=mesh)
+    key = pipe.default_key
+    batches = [S.rows_to_interval_batch(v, st, c, 4)
+               for v, st, c in job["epochs"]]
+    state = pipe.init()
+    clock.append(("set-up", time.perf_counter()))
+    reset_launches()
+    mesh.reset_ledger()
+    secs, answers = [], []
+    for b in batches:
+        t0 = time.perf_counter()
+        state, wa = pipe.run_epoch(state, key, b)
+        sync()
+        secs.append(time.perf_counter() - t0)
+        answers.append({k: v.cpu().numpy() for k, v in wa._asdict().items()
+                        if v is not None})
+    out = dict(rank=mesh.rank, device=str(mesh.device), secs=secs,
+               answers=answers, launches=dict(LAUNCHES),
+               ledger=mesh.ledger_summary(), host_copies=mesh.host_copies,
+               host_copy_bytes=mesh.host_copy_bytes,
+               summary_bytes=pipe.summary_bytes_per_window,
+               merge_bytes=float(state.telemetry.merge_bytes),
+               shard=batches[0].value.shape[-1] // mesh.size,
+               qstate=[v.cpu().numpy() for v in _leaves(state.qstate)])
+    if on_card:   # one more epoch of PROFILED_WINDOWS, profiled on rank 0
+        v, st, c = job["epochs"][-1]
+        short = S.rows_to_interval_batch(v[:PROFILED_WINDOWS],
+                                         st[:PROFILED_WINDOWS],
+                                         c[:PROFILED_WINDOWS], 4)
+
+        def epoch():
+            pipe.run_epoch(state, key, short)
+
+        clock.append(("epochs", time.perf_counter()))
+        if mesh.rank == 0:
+            out["profile"] = busy_share(epoch)
+        else:
+            epoch()
+        clock.append(("profile", time.perf_counter()))
+    out["clock"] = {name: round(t - t0, 2) for (_, t0), (name, t)
+                    in zip(clock, clock[1:])}
+    return out
+
+
+def busy_share(fn) -> dict:
+    """One call of ``fn`` under a profiler trace of the device alone
+    (host events would cost the trace's processing minutes at an epoch's
+    ≈ 10^5 launches), between two pads: the device time of its
+    operations, their count and the call's wall time (inflated a little
+    by the profiler)."""
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _pad()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        _pad()
+    ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+          and "spin_kernel" not in e.name]
+    return dict(wall_ms=wall * 1e3, events=len(ev),
+                busy_ms=sum(e.time_range.elapsed_us() for e in ev) / 1e3)
+
+
+def _leaves(tree):
+    if torch.is_tensor(tree):
+        return [tree]
+    return [x for part in tree for x in _leaves(part)]
+
+
+def mesh_launches_per_window(plan) -> dict:
+    """What one rank launches a window on the tenant path with
+    ``pallas_fused``: the root's selection and counts, one ``cms_update``
+    per heavy-hitter query, and ``quantile_compact`` once per level for
+    this rank's fold and once per level for the merge of the gathered
+    summaries, for every quantile and windowed-quantile query."""
+    from repro_torch.query.sketches import kll_schedule
+
+    specs = [sp for t in plan.tenant_names for sp in plan.plan_for(t).specs]
+    return {"fused_select": 1, "stratified_stats": 1,
+            "fused_level_tick": 0, "sample_mask": 0, "flash_attention": 0,
+            "cms_update": sum(sp.kind in HH_KINDS for sp in specs),
+            "quantile_compact": sum(2 * len(kll_schedule(sp.capacity))
+                                    for sp in specs
+                                    if sp.kind in SKETCH_KINDS)}
+
+
+def check_mesh_accuracy(plan, answers, epochs, what) -> str:
+    """The last window's stream-so-far quantiles, ranked on the exact
+    stream, within their rank bound plus the sampling slack; the stream's
+    most frequent key among k8's heavy hitters (as ``check_accuracy``)."""
+    values = np.concatenate([v[t, :c[t]] for v, _, c in epochs
+                             for t in range(v.shape[0])]).astype(np.float64)
+    ans = np.concatenate([a["answers"] for a in answers])
+    bnd = np.concatenate([a["bounds"] for a in answers])
+    n_kept = int(sum(a["n_sampled"].sum() for a in answers))
+    lay = plan.layout()
+    worst = 0.0
+    for t in plan.tenant_names:
+        for sp in plan.plan_for(t).specs:
+            if sp.kind != "quantile":
+                continue
+            o = lay[f"{t}/{sp.name}"][0]
+            for j, target in enumerate(sp.qs):
+                got, bound = float(ans[-1, o + j]), float(bnd[-1, o + j])
+                rank = float((values <= got).mean())
+                slack = RANK_SIGMAS * np.sqrt(target * (1 - target) / n_kept)
+                if abs(rank - target) > bound + slack:
+                    fail(f"{what}: {t}/{sp.name} q={target}: answer {got} "
+                         f"ranks {rank:.5f} on the stream, beyond its bound "
+                         f"{bound:.5f} + slack {slack:.5f}")
+                worst = max(worst, abs(rank - target) / (bound + slack))
+    uniq, cnt = np.unique(np.round(values).astype(np.int64),
+                          return_counts=True)
+    mode = int(uniq[np.argmax(cnt)])
+    o, w, _ = lay["k8/heavy"]
+    found = [int(k) for k in ans[-1, o:o + w // 2]]
+    if mode not in found:
+        fail(f"{what}: the most frequent key {mode} is not among k8's "
+             f"heavy hitters {found}")
+    return (f"quantiles within rank bound + slack (worst {worst:.3f} of "
+            f"it), key {mode} among the heavy hitters")
+
+
+def run_mesh_plane(P, S, A) -> None:
+    """The mesh phase: the testbed with tenants on the mesh data plane,
+    with NCCL at min(cards, 4) ranks (one card a rank) and with gloo at 2
+    and 4 ranks sharing the card, each against gloo CPU ranks at the same
+    N, bitwise but the sketch bounds (``SKETCH_BOUND_RTOL``)."""
+    from repro_torch.launch.mesh import spawn_ranks
+
+    t_phase = time.perf_counter()
+    n_cards = torch.cuda.device_count()
+    n_nccl = min(n_cards, 4)
+    width = mesh_width(4)
+    if any(mesh_width(n) != width for n in (1, 2, 4)):
+        fail("the mesh width differs between rank counts")
+    epochs = mesh_ingest(S, width)
+    items = [int(c.sum()) for _, _, c in epochs]
+    runs = [("nccl", n_nccl, "cuda"), ("gloo", 2, "cuda"),
+            ("gloo", 4, "cuda")]
+    cpu_ns = sorted({n for _, n, _ in runs})
+    print(f"mesh plane: {n_cards} CUDA card(s) on this machine; "
+          f"backend nccl at N={n_nccl} (one card a rank), gloo at N=2 and "
+          f"N=4 (ranks sharing cuda:0), gloo CPU ranks at N={cpu_ns} to "
+          f"compare; width {width}, {MESH_EPOCHS} epochs x {TICKS} "
+          f"windows, {items[0]} items in epoch 0")
+    def run(backend, n, device):
+        job = dict(n=n, device=device, backend=backend, epochs=epochs,
+                   spec=mesh_spec(P, S, A, n).to_dict())
+        t0 = time.perf_counter()
+        if device == "cpu" and n == 1:   # a one-rank mesh needs no group
+            ranks = [mesh_rank(job)]
+        else:
+            ranks = spawn_ranks(mesh_rank, n, args=(job,), device=device,
+                                backend=backend, timeout_s=MESH_TIMEOUT_S)
+        print(f"mesh {backend} N={n} on {device}: {time.perf_counter() - t0:.1f}"
+              f" s from spawn to results; in rank 0's function "
+              f"{ranks[0]['clock']} s")
+        return ranks
+
+    # the card's runs one after another (they are timed), then the CPU's
+    # all at once (they are not)
+    t0 = time.perf_counter()
+    results = {key: run(*key) for key in runs}
+    t_card = time.perf_counter() - t0
+    cpu_keys = [("gloo", n, "cpu") for n in cpu_ns]
+    with ThreadPoolExecutor(max_workers=len(cpu_keys)) as pool:
+        jobs = {key: pool.submit(run, *key) for key in cpu_keys}
+        results.update({key: job.result() for key, job in jobs.items()})
+    print(f"mesh plane: card runs {t_card:.1f} s, CPU runs "
+          f"{time.perf_counter() - t0 - t_card:.1f} s, with start-up")
+    for (backend, n, device), ranks in results.items():
+        what = f"mesh {backend} N={n} on {device}"
+        for r in ranks[1:]:
+            for e, (a, b) in enumerate(zip(r["answers"],
+                                           ranks[0]["answers"])):
+                for k in b:
+                    if not same_arrays(a[k], b[k]):
+                        fail(f"{what}: rank {r['rank']}'s {k} in epoch {e} "
+                             f"differs from rank 0's")
+        print(f"{what}: every rank's answers the same bits")
+
+    plan = P.resolve(mesh_spec(P, S, A, 1)).plan
+    lay = plan.layout()
+    sketch = np.asarray([c for o, w, kind in lay.values()
+                         if kind in SKETCH_KINDS or kind in HH_KINDS
+                         for c in range(o, o + w)])
+    per_window = mesh_launches_per_window(plan)
+    counts = {}
+    for (backend, n, device), ranks in results.items():
+        what = f"mesh {backend} N={n} on {device}"
+        cpu = results[("gloo", n, "cpu")]
+        for r, c in zip(ranks, cpu):
+            for e, (a, b) in enumerate(zip(r["answers"], c["answers"])):
+                for k in b:
+                    x, y = a[k], b[k]
+                    if k == "bounds":
+                        rest = np.setdiff1d(np.arange(x.shape[-1]), sketch)
+                        ok = (same_arrays(x[:, rest], y[:, rest])
+                              and np.allclose(x[:, sketch], y[:, sketch],
+                                              rtol=SKETCH_BOUND_RTOL,
+                                              atol=0.0))
+                    else:
+                        ok = same_arrays(x, y)
+                    if not ok:
+                        fail(f"{what}: rank {r['rank']}'s {k} in epoch {e} "
+                             f"differs from the CPU ranks'")
+            for i, (x, y) in enumerate(zip(r["qstate"], c["qstate"])):
+                if not same_arrays(x, y):
+                    fail(f"{what}: rank {r['rank']}'s sketch leaf {i} "
+                         f"differs from the CPU rank's")
+        o = lay["k8/count"][0]
+        counts[(backend, n, device)] = np.concatenate(
+            [a["answers"][:, o] for a in ranks[0]["answers"]])
+        if device == "cpu":
+            continue
+        print(f"{what}: answers, bounds (sketch bounds within "
+              f"{SKETCH_BOUND_RTOL}) and every rank's sketch rows "
+              f"bitwise the CPU ranks'; "
+              + check_mesh_accuracy(plan, ranks[0]["answers"], epochs,
+                                    what))
+        windows = MESH_EPOCHS * TICKS
+        for r in ranks:
+            want = {k: v * windows for k, v in per_window.items()}
+            got = {k: r["launches"][k] for k in want}
+            if got != want or r["launches"]["segment_sum"] < 6 * windows:
+                fail(f"{what}: rank {r['rank']} launched {r['launches']}, "
+                     f"expected {want} and segment_sum >= {6 * windows}")
+            largest = max(v["max_elems"] for v in r["ledger"].values())
+            if largest * 4 > r["summary_bytes"] or largest >= r["shard"]:
+                fail(f"{what}: rank {r['rank']} sent an operand of "
+                     f"{largest} elements (summary model "
+                     f"{r['summary_bytes']} B, shard {r['shard']} items)")
+        r0 = ranks[0]
+        led = r0["ledger"]
+        coll_s = sum(v["seconds"] for v in led.values())
+        sent = sum(v["bytes"] for v in led.values())
+        prof = r0.get("profile")
+        busy = (f"device busy {prof['busy_ms']:.2f} of {prof['wall_ms']:.1f}"
+                f" ms ({100 * prof['busy_ms'] / prof['wall_ms']:.1f}%, "
+                f"{prof['events']} device events) in one profiled epoch of "
+                f"{PROFILED_WINDOWS} windows"
+                if prof and prof["events"] else
+                "device busy share not measured (the profiler saw no "
+                "device events)")
+        print(f"{what}: launches per rank {r0['launches']} (per window "
+              f"{per_window}); epochs "
+              f"{', '.join(f'{x * 1e3:.1f}' for x in r0['secs'])} ms (the "
+              f"first with first use), {items[-1] / r0['secs'][-1]:.4g} "
+              f"items/s in the last; collectives "
+              f"{1e3 * coll_s / windows:.3f} ms a window on rank 0 "
+              f"({sum(v['calls'] for v in led.values()) // windows} a "
+              f"window, largest {max(v['max_elems'] for v in led.values())}"
+              f" elements); {sent / windows:.0f} B a window sent by rank 0 "
+              f"(byte model summary_bytes_per_window {r0['summary_bytes']} "
+              f"B; merge_bytes {r0['merge_bytes']:.0f}); host copies "
+              f"{r0['host_copies']} ({r0['host_copy_bytes']} B); {busy}")
+    ref_count = counts[("gloo", 2, "cpu")]
+    for k, v in counts.items():
+        if not same_arrays(v, ref_count):
+            fail(f"the exact count differs across rank counts: {k}")
+    print(f"mesh plane: the exact count bitwise at every N and backend "
+          f"({int(ref_count[0])} in window 0); phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
 
 
 # ------------------------------------------------------------ main path --
@@ -2007,6 +2368,9 @@ def main() -> None:
     # executor.
     run_serve_plane(P, S, dev, qspec, LAUNCHES, reset_launches,
                     per_window)
+    # The mesh data plane: NCCL and gloo ranks on the card, against gloo
+    # ranks on the CPU.
+    run_mesh_plane(P, S, A)
 
     # 4. Times, at the main path's shapes: device time from the profiler
     # (what ``ms``, ``plain_ms`` and ``library_ms`` report), and beside it

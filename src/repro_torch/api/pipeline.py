@@ -418,7 +418,11 @@ def save_state(root, step: int, state: PipelineState, *,
     a restore can check it loads into the same pipeline; ``pipeline=``
     (preferred) also records the slot configuration, which a churned
     pipeline's spec alone cannot rebuild (retirement leaves slot holes).
-    Save before handing the state to ``run_epoch``, which consumes it."""
+    With a mesh pipeline (``api.spmd``) every rank calls this: the ranks'
+    sketch rows are gathered and rank 0 writes the reference's ``[N,
+    ...]`` layout (the path is returned there, ``None`` on the other
+    ranks). Save before handing the state to ``run_epoch``, which
+    consumes it."""
     from repro_torch.checkpoint import manager
     from repro_torch.obs.trace import span
 
@@ -429,15 +433,26 @@ def save_state(root, step: int, state: PipelineState, *,
         specmod.build_plan(spec) if spec is not None else None)
     if plan is not None:
         meta["slots"] = plan.slot_manifest()
+    mesh = getattr(pipeline, "mesh", None)
     with span("checkpoint", op="save", step=step):
-        return manager.save(root, step, state, meta=meta, keep_n=keep_n)
+        if mesh is None:
+            return manager.save(root, step, state, meta=meta, keep_n=keep_n)
+        # a mesh pipeline: every rank's sketch rows gathered into the
+        # reference's [N, ...] layout, written once, by rank 0
+        state = pipeline.gather_state(state)
+        path = None
+        if mesh.rank == 0:
+            path = manager.save(root, step, state, meta=meta, keep_n=keep_n)
+        mesh.barrier()
+        return path
 
 
 def restore_state(root, compiled: CompiledPipeline, step: int | None = None
                   ) -> tuple[PipelineState, dict]:
     """Load a checkpointed ``PipelineState`` into ``compiled``'s state
     template, on its device (default: the latest step under ``root``) →
-    ``(state, meta)``. A checkpoint of another spec, or of a pipeline
+    ``(state, meta)``; a mesh pipeline's rank takes its own row of every
+    per-rank leaf. A checkpoint of another spec, or of a pipeline
     whose slots churned differently, is a ``SpecError``: resuming under
     other sampling semantics or slot routing would silently change every
     answer."""
@@ -471,16 +486,33 @@ def restore_state(root, compiled: CompiledPipeline, step: int | None = None
                 f"Admit/retire this pipeline to the saved live set (same "
                 f"order) or restore into a pipeline compiled from the "
                 f"checkpoint's spec before any churn.")
+    target = compiled.init()
+    shardings = None
+    if getattr(compiled, "mesh", None) is not None and len(target):
+        from repro_torch.launch.sharding import spmd_state_shardings
+
+        shardings = spmd_state_shardings(target, compiled.mesh)
     with span("checkpoint", op="restore", step=step):
-        return manager.restore(root, step, compiled.init())
+        return manager.restore(root, step, target, shardings=shardings)
 
 
-def compile(spec: PipelineSpec, *, device="cuda") -> CompiledPipeline:
+def compile(spec: PipelineSpec, *, device=None, mesh=None):
     """The front door: ``PipelineSpec → CompiledPipeline`` on ``device``
     (``"cuda"`` by default; it raises where there is no CUDA device,
-    and ``device="cpu"`` runs the plain PyTorch path)."""
+    and ``device="cpu"`` runs the plain PyTorch path). With ``mesh`` (a
+    rank's ``launch.mesh.DataMesh``) the spec lowers onto the mesh data
+    plane instead, on the mesh's device: ``api.spmd.CompiledSpmdPipeline``,
+    compiled on every rank."""
     if not isinstance(spec, PipelineSpec):
         raise SpecError(f"compile() takes a repro_torch PipelineSpec, got "
                         f"{type(spec).__name__} — build one with "
                         f"PipelineSpec(...) or PipelineSpec.from_dict(...)")
-    return CompiledPipeline(spec, resolve_device(device))
+    if mesh is not None:
+        from repro_torch.api.spmd import CompiledSpmdPipeline
+
+        if device is not None and torch.device(device) != mesh.device:
+            raise SpecError(f"device={device!r} disagrees with the mesh "
+                            f"rank's device {mesh.device}")
+        return CompiledSpmdPipeline(spec, mesh)
+    return CompiledPipeline(spec, resolve_device(
+        "cuda" if device is None else device))

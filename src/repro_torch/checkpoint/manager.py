@@ -53,6 +53,19 @@ def _flatten(tree) -> list:
     raise TypeError(f"cannot checkpoint a leaf of type {type(tree).__name__}")
 
 
+def _flatten_like(spec, tree) -> list:
+    """``spec``'s nodes at the leaf positions of ``tree`` (a pytree of
+    per-leaf placements laid over the tree they describe)."""
+    if tree is None:
+        return []
+    if _is_leaf(tree):
+        return [spec]
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _flatten_like(spec[k],
+                                                               tree[k])]
+    return [x for s, t in zip(spec, tree) for x in _flatten_like(s, t)]
+
+
 def _describe(tree) -> str:
     """A readable description of the structure (``*`` a leaf)."""
     if tree is None:
@@ -157,21 +170,35 @@ def restore(root: str | pathlib.Path, step: int, target_tree, *,
             shardings=None):
     """Load into the structure of ``target_tree`` (shape and dtype
     template; each leaf lands on its template leaf's device) →
-    ``(tree, meta)``. ``shardings`` (an elastic re-mesh on load) is not
-    ported: it raises, naming ROADMAP Queue 1 item 12."""
-    if shardings is not None:
-        raise NotImplementedError(
-            "restore(shardings=...) re-shards onto a device mesh, which is "
-            "not ported yet: ROADMAP.md Queue 1 item 12 (distributed)")
+    ``(tree, meta)``.
+
+    ``shardings`` re-meshes on load: a ``launch.sharding.RankShardings``
+    (a rank's mesh and a placement per leaf of ``target_tree``, from
+    ``spmd_state_shardings``). A ``PER_RANK`` leaf is stored in the
+    reference's ``[N, ...]`` layout and the rank loads its own row as
+    ``[1, ...]``; a replicated leaf loads whole."""
     path = pathlib.Path(root) / f"step_{step:09d}"
     manifest = json.loads((path / "manifest.json").read_text())
     leaves = _flatten(target_tree)
     if manifest["num_leaves"] != len(leaves):
         raise ValueError(f"leaf count mismatch: ckpt "
                          f"{manifest['num_leaves']} vs target {len(leaves)}")
+    rows = [None] * len(leaves)
+    if shardings is not None:
+        from repro_torch.launch.sharding import PER_RANK
+
+        mesh = shardings.mesh
+        rows = [(mesh.rank, mesh.size) if p == PER_RANK else None
+                for p in _flatten_like(shardings.placements, target_tree)]
     arrays = []
-    for i, tmpl in enumerate(leaves):
+    for i, (tmpl, row) in enumerate(zip(leaves, rows)):
         arr = np.load(path / f"arr_{i:05d}.npy")
+        if row is not None:
+            rank, size = row
+            if arr.shape[:1] != (size,):
+                raise ValueError(f"leaf {i} holds {arr.shape[:1]} rows, "
+                                 f"not one per rank of a {size}-rank mesh")
+            arr = arr[rank:rank + 1]
         if tuple(arr.shape) != tuple(np.shape(tmpl)):
             raise ValueError(f"leaf {i} shape mismatch: ckpt "
                              f"{tuple(arr.shape)} vs target "

@@ -415,3 +415,13 @@ def get_backend(backend: str | SamplerBackend) -> SamplerBackend:
     except KeyError:
         raise ValueError(f"unknown sampler backend {backend!r}; "
                          f"registered: {sorted(_BACKENDS)}") from None
+
+
+def merge_priority_samples(priorities_a: torch.Tensor,
+                           priorities_b: torch.Tensor) -> torch.Tensor:
+    """§III-E merge helper: the union of two priority-tagged shard
+    samples. Selection is "top-N by i.i.d. priority", so two workers'
+    reservoirs merge by concatenation and a new selection, with no
+    coordination. Returns the concatenated priorities (the caller runs
+    the selection again)."""
+    return torch.cat([priorities_a, priorities_b], dim=0)

@@ -29,7 +29,7 @@ import torch
 
 from repro_torch.core import error as err
 from repro_torch.core import prng, queries, sampling, srs, whs
-from repro_torch.core.types import IntervalBatch, StratumMeta
+from repro_torch.core.types import IntervalBatch, QueryResult, StratumMeta
 from repro_torch.core.window import LevelState, TreeState, Window
 from repro_torch.device import resolve_device
 
@@ -986,3 +986,208 @@ class HostTree:
             parent.deliver_packed(packed_v, packed_s, n_deliv)
             parent.fold_meta(np.arange(state.n_nodes) % n_parents, present,
                              w_out, c_out)
+
+
+# --------------------------------------------------------------------------
+# The mesh data plane (§III-E): every rank runs these on its own shard of
+# each window, with a ``launch.mesh.DataMesh``; every rank calls the same
+# collectives in the same order. Window ``i``'s key is ``fold_in(key,
+# t_i)``; rank ``r`` samples with ``fold_in(key_i, r)``.
+# --------------------------------------------------------------------------
+_ROOT_KEY_TAG = 0x5F3759DF
+
+
+def spmd_priorities(key, ts: torch.Tensor, rank: int, cap: int
+                    ) -> torch.Tensor:
+    """f32 ``[T, cap]``: rank ``rank``'s uniforms at each window of
+    ``ts`` (``uniform(fold_in(fold_in(key, t), rank), (cap,))``)."""
+    return prng.uniform(prng.fold_in(prng.fold_in(key, ts), rank), (cap,))
+
+
+def _stack_results(rows) -> QueryResult:
+    """Per-window ``(estimate, variance)`` pairs → ``[T]`` leaves."""
+    return QueryResult(*(torch.stack(col) for col in zip(*rows)))
+
+
+def _f32(x, device) -> torch.Tensor:
+    return torch.as_tensor(x, dtype=torch.float32, device=device)
+
+
+def spmd_local_then_root(batch: IntervalBatch, *, mesh, num_strata: int,
+                         local_budget: int, root_budget: int,
+                         allocation: str = "fair",
+                         backend=sampling.DEFAULT_BACKEND,
+                         priorities: torch.Tensor,
+                         root_priorities: torch.Tensor):
+    """The two-level hierarchy across the mesh, one window: this rank
+    samples its shard and compacts to ``local_budget`` slots; the
+    compacted reservoirs (not the raw shard) are gathered from every
+    rank and the root stage samples them again and answers SUM/MEAN
+    with bounds, the same on every rank. ``priorities`` are this rank's
+    uniforms for its shard, ``root_priorities`` the root's for the
+    gathered ``N·budget`` slots (from ``fold_in(key, 0x5F3759DF)``).
+    Returns ``(sum, mean)`` ``QueryResult``s."""
+    dev = batch.value.device
+    res = whs.whsamp(None, batch, _f32(local_budget, dev), num_strata,
+                     allocation=allocation, backend=backend,
+                     max_reservoir=local_budget, priorities=priorities)
+    compact = whs.compact_sample(batch, res, local_budget)
+    g_val = mesh.all_gather(compact.value, tiled=True)
+    g_str = mesh.all_gather(compact.stratum, tiled=True)
+    g_vld = mesh.all_gather(compact.valid, tiled=True)
+    # Parallel workers merge by the count-weighted mean of their weights
+    # (core/window.py: Eq. 5's max rule is path-only); a stratum empty on
+    # every rank takes weight 1 (it holds no item).
+    g_c = mesh.psum(compact.meta.count)
+    g_w = (mesh.psum(compact.meta.weight * compact.meta.count)
+           / torch.clamp_min(g_c, 1.0))
+    g_w = torch.where(g_c > 0.0, g_w, 1.0)
+    root = IntervalBatch(g_val, g_str, g_vld, StratumMeta(g_w, g_c))
+    res_root = whs.whsamp(None, root, _f32(root_budget, dev), num_strata,
+                          allocation=allocation, backend=backend,
+                          max_reservoir=root_budget,
+                          priorities=root_priorities)
+    s = err.approx_sum(root.value, root.stratum, res_root.selected,
+                       res_root.meta, num_strata)
+    m = err.approx_mean(root.value, root.stratum, res_root.selected,
+                        res_root.meta, num_strata)
+    return s, m
+
+
+def spmd_local_then_root_epoch(key, batches: IntervalBatch, *, mesh,
+                               num_strata: int, local_budget: int,
+                               root_budget: int, allocation: str = "fair",
+                               backend=sampling.DEFAULT_BACKEND):
+    """``spmd_local_then_root`` over ``T`` windows: ``batches`` leaves
+    carry a leading tick axis and this rank's shard of the item axis
+    (``value[T, M/N]``); window ``i`` folds ``i`` into ``key``. Returns
+    ``(sum, mean)`` with ``[T]`` leaves."""
+    t = batches.value.shape[0]
+    dev = batches.value.device
+    ts = torch.arange(t, dtype=torch.int64, device=dev)
+    prio = spmd_priorities(key, ts, mesh.rank, batches.value.shape[-1])
+    gathered = mesh.size * min(local_budget, batches.value.shape[-1])
+    root_prio = prng.uniform(prng.fold_in(prng.fold_in(key, ts),
+                                          _ROOT_KEY_TAG), (gathered,))
+    outs = []
+    for i in range(t):
+        batch = IntervalBatch(batches.value[i], batches.stratum[i],
+                              batches.valid[i],
+                              StratumMeta(batches.meta.weight[i],
+                                          batches.meta.count[i]))
+        outs.append(spmd_local_then_root(
+            batch, mesh=mesh, num_strata=num_strata,
+            local_budget=local_budget, root_budget=root_budget,
+            allocation=allocation, backend=backend, priorities=prio[i],
+            root_priorities=root_prio[i]))
+    return (_stack_results([o[0] for o in outs]),
+            _stack_results([o[1] for o in outs]))
+
+
+def spmd_query_plane_tick(batch: IntervalBatch, qstate: tuple, plan, *,
+                          mesh, budget, max_budget: int, num_strata: int,
+                          allocation: str = "fair",
+                          backend=sampling.DEFAULT_BACKEND,
+                          priorities: torch.Tensor, draws=None,
+                          hist_bins: int = 64):
+    """One window of the multi-tenant query plane on the mesh: this rank
+    samples its shard (``budget`` the applied sample size, ``max_budget``
+    the ceiling), and the window is answered from summaries merged across
+    the ranks — the built-in SUM/MEAN ± variance, sample count and
+    histogram from summed per-shard moments (the histogram's edges from a
+    min/max over ranks), every tenant's queries through
+    ``plan.evaluate_spmd`` (``draws`` its uniforms for this window). No
+    item crosses a rank. Returns ``(qstate', (ok, sum, sum_var, mean,
+    mean_var, n_sampled, histogram[, answers, bounds]))``; ``qstate'``
+    is this rank's, every output the same bits on every rank."""
+    res = whs.whsamp(None, batch, budget, num_strata, allocation=allocation,
+                     backend=backend, max_reservoir=max_budget,
+                     priorities=priorities)
+    sel = res.selected
+    psum = mesh.psum
+    y, s1, s2 = err.stratum_moments(batch.value, batch.stratum, sel,
+                                    num_strata)
+    # Σ Y_i·W_i once, unrounded by FMAs: the mean's HT total and this
+    # shard's population, whose share re-weights the merged mean.
+    total_local = sampling.seq_sum(y * res.meta.weight)[..., 0]
+    s_loc = err.approx_sum_from_moments(y, s1, s2, res.meta)
+    m_loc = err.approx_mean_from_moments(y, s1, s2, res.meta, total_local)
+    share = total_local / torch.clamp_min(psum(total_local), 1.0)
+    se, sv = psum(s_loc.estimate), psum(s_loc.variance)
+    me = psum(m_loc.estimate * share)
+    mv = psum(m_loc.variance * share * share)
+    n_sel = psum(sel.sum(dtype=torch.int32))
+    ok = psum(batch.valid.sum(dtype=torch.int32)) > 0
+    lo = mesh.pmin(torch.where(sel, batch.value, torch.inf).min())
+    hi = mesh.pmax(torch.where(sel, batch.value, -torch.inf).max())
+    edges = _linspace(lo, hi + 1e-6, hist_bins + 1)
+    hist = psum(queries.weighted_histogram(batch, res, num_strata,
+                                           edges).estimate)
+    outs = (ok, se, sv, me, mv, n_sel, hist)
+    if plan is None:
+        return qstate, outs
+    qstate2, answers, bounds = plan.evaluate_spmd(draws, batch, res, qstate,
+                                                  mesh, share=share)
+    return qstate2, outs + (answers, bounds)
+
+
+def spmd_query_plane_epoch(key, t0: int, budget, batches: IntervalBatch,
+                           qstate: tuple, plan, *, mesh, max_budget: int,
+                           num_strata: int, allocation: str = "fair",
+                           backend=sampling.DEFAULT_BACKEND,
+                           hist_bins: int = 64):
+    """``spmd_query_plane_tick`` over ``T`` windows with the sketch state
+    carried: window ``i`` folds the global tick ``t0 + i`` into ``key``,
+    so epochs resume bitwise as one long epoch. ``batches`` holds this
+    rank's shard (``value[T, M/N]``). The priorities and sketch uniforms
+    of the whole epoch are drawn up front. Returns ``(qstate', outs)``
+    with ``[T]``-stacked outputs."""
+    t = batches.value.shape[0]
+    dev = batches.value.device
+    ts = torch.arange(t, dtype=torch.int64, device=dev) + t0
+    prio = spmd_priorities(key, ts, mesh.rank, batches.value.shape[-1])
+    draws = None
+    if plan is not None:
+        draws = plan.draws_spmd(prng.fold_in(key, ts), mesh.rank)
+    rows = []
+    for i in range(t):
+        batch = IntervalBatch(batches.value[i], batches.stratum[i],
+                              batches.valid[i],
+                              StratumMeta(batches.meta.weight[i],
+                                          batches.meta.count[i]))
+        qstate, out = spmd_query_plane_tick(
+            batch, qstate, plan, mesh=mesh, budget=budget,
+            max_budget=max_budget, num_strata=num_strata,
+            allocation=allocation, backend=backend, priorities=prio[i],
+            draws=None if draws is None else
+            tuple(None if d is None else d[i] for d in draws),
+            hist_bins=hist_bins)
+        rows.append(out)
+    return qstate, tuple(torch.stack(col) for col in zip(*rows))
+
+
+def spmd_srs_epoch(key, batches: IntervalBatch, *, mesh, fraction: float):
+    """The §IV-B coin-flip baseline on the mesh: each rank keeps its
+    shard's items with probability ``fraction`` (window ``i``'s key
+    ``fold_in(fold_in(key, i), rank)``), and the HT SUM and sample MEAN
+    merge from moments summed over the ranks; no item crosses a rank.
+    Returns ``(sum, mean)`` with ``[T]`` leaves."""
+    t = batches.value.shape[0]
+    dev = batches.value.device
+    ts = torch.arange(t, dtype=torch.int64, device=dev)
+    prio = spmd_priorities(key, ts, mesh.rank, batches.value.shape[-1])
+    p = _f32(fraction, dev)
+    sums, means = [], []
+    for i in range(t):
+        sel = (prio[i] < p) & batches.valid[i]
+        x = torch.where(sel, batches.value[i], 0.0)
+        n = mesh.psum(sel.float().sum())
+        g1 = mesh.psum(x.sum())
+        g2 = mesh.psum((x * x).sum())
+        sums.append((g1 / p, g2 * (1.0 - p) / (p * p)))
+        mean = g1 / torch.clamp_min(n, 1.0)
+        # g2 − (n·mean)·mean, one FMA as in the reference's compiled code
+        s_sq = (torch.clamp_min(sampling.fma(-(n * mean), mean, g2), 0.0)
+                / torch.clamp_min(n - 1.0, 1.0))
+        means.append((mean, s_sq / torch.clamp_min(n, 1.0)))
+    return _stack_results(sums), _stack_results(means)

@@ -13,7 +13,9 @@ The port's own copy of ``repro.data.stream``'s streams:
 One source node draws from a numpy generator, in the reference's order,
 so one seed gives the same items to both packages; then the tick-major
 epoch ingest layout, from sources (``batch_ingest``) or from records a
-host collected (``ticks_to_ingest``, the serve CLI's request latencies).
+host collected (``ticks_to_ingest``, the serve CLI's request latencies),
+and the flat per-tick batches of the mesh data plane
+(``rows_to_interval_batch``).
 """
 from __future__ import annotations
 
@@ -100,6 +102,23 @@ class StreamSource:
         return (np.concatenate(vals).astype(np.float32),
                 np.concatenate(strs))
 
+    def batch(self, ticks: int, width: int | None = None
+              ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """``ticks`` consecutive ``tick()`` draws padded into ``(values
+        f32[T, width], strata i32[T, width], counts i32[T])``; ``width``
+        defaults to the largest tick, and larger ticks are
+        prefix-truncated. Consumes the generator exactly as ``ticks``
+        ``tick()`` calls do."""
+        draws = [self.tick() for _ in range(ticks)]
+        if width is None:
+            width = max((len(v) for v, _ in draws), default=0)
+        values = np.zeros((ticks, width), np.float32)
+        strata = np.zeros((ticks, width), np.int32)
+        counts = np.zeros((ticks,), np.int32)
+        for t, (v, s) in enumerate(draws):
+            counts[t] = _pack_prefix(values[t], strata[t], v, s, 0, width)
+        return values, strata, counts
+
 
 def _pack_prefix(dst_v, dst_s, v, s, fill: int, width: int) -> int:
     """Write the prefix of ``v``/``s`` that fits at ``fill`` in a
@@ -181,3 +200,44 @@ def ticks_to_ingest(tick_records, n_nodes: int, width: int) -> IngestBatch:
                                            vv, ss, 0, width)
     return IngestBatch(values, strata, counts, offered, exact_sum,
                        exact_count)
+
+
+def rows_to_interval_batch(values: np.ndarray, strata: np.ndarray,
+                           counts: np.ndarray, num_strata: int,
+                           width: int | None = None, device=None):
+    """Padded per-tick rows → the ``IntervalBatch`` with a leading tick
+    axis that the mesh data plane consumes
+    (``repro_torch.compile(spec, mesh=...)``).
+
+    ``values``/``strata`` are ``[T, W]`` rows with ``counts[T]`` live
+    items each (``StreamSource.batch`` emits exactly this). ``width``
+    re-pads the item axis: pass a multiple of the mesh size so the batch
+    splits evenly; padding slots carry ``valid=False`` and are never
+    sampled. The metadata is the source identity (weight 1, count 0) per
+    tick. Tensors land on ``device`` (the CPU by default)."""
+    import torch
+
+    from repro_torch.core.types import IntervalBatch, StratumMeta
+
+    values = np.asarray(values, np.float32)
+    strata = np.asarray(strata, np.int32)
+    ticks, w0 = values.shape
+    width = int(width or w0)
+    if width != w0:
+        out_v = np.zeros((ticks, width), np.float32)
+        out_s = np.zeros((ticks, width), np.int32)
+        keep = min(w0, width)
+        out_v[:, :keep] = values[:, :keep]
+        out_s[:, :keep] = strata[:, :keep]
+        values, strata = out_v, out_s
+        counts = np.minimum(counts, width)
+    valid = np.arange(width)[None, :] < np.asarray(counts)[:, None]
+    return IntervalBatch(
+        value=torch.as_tensor(values, device=device),
+        stratum=torch.as_tensor(strata, device=device),
+        valid=torch.as_tensor(valid, device=device),
+        meta=StratumMeta(
+            torch.ones((ticks, num_strata), dtype=torch.float32,
+                       device=device),
+            torch.zeros((ticks, num_strata), dtype=torch.float32,
+                        device=device)))

@@ -6,8 +6,12 @@ synthetic sub-streams through it and reports windowed SUM/MEAN with ±2σ
 bounds, accuracy against the exact sum, throughput, per-hop bandwidth
 and a modelled end-to-end latency. The ``level`` and ``loop`` engines
 drive ``core.tree.HostTree`` tick by tick; ``scan`` drives
-``repro_torch.compile`` an epoch at a time. Everything runs on the CUDA
-card unless ``--device cpu`` (``device="cpu"``) is asked for.
+``repro_torch.compile`` an epoch at a time. ``--mesh N``
+(``run_spmd_pipeline``) runs the §III-E data plane instead, on N rank
+processes of a ``torch.distributed`` mesh (``launch.mesh``): NCCL with
+one card a rank, or gloo (``--mesh-backend gloo``) on the CPU or with
+ranks sharing a card. Everything runs on the CUDA card unless ``--device
+cpu`` (``device="cpu"``) is asked for.
 
 Latency model (Fig. 9/10): the testbed's WAN follows §V-A — RTTs of
 20/40/80 ms between layers, 1 Gbps links, 16 B/item. An item's
@@ -17,6 +21,8 @@ hops of (RTT/2 + forwarded bytes / link rate).
 
     PYTHONPATH=src python -m repro_torch.launch.analytics --dist gaussian \\
         --fraction 0.1 --ticks 20 --engine level --backend pallas
+    PYTHONPATH=src python -m repro_torch.launch.analytics --mesh 2 \\
+        --queries sum,count,q:0.5:0.99 --device cpu
 """
 from __future__ import annotations
 
@@ -30,18 +36,15 @@ from repro_torch.api.spec import (BudgetSpec, PipelineSpec, SamplerSpec,
                                   StrataSpec, TelemetrySpec, TenantSpec,
                                   TopologySpec)
 from repro_torch.core.tree import HostTree, accumulate_epoch_accounting
+from repro_torch.core import prng
 from repro_torch.data import stream as S
+from repro_torch.launch.mesh import make_data_mesh, spawn_ranks
 from repro_torch.obs.trace import span
 
 # §V-A WAN emulation constants.
 HOP_RTT_S = (0.020, 0.040, 0.080)   # source→L0, L0→L1, L1→root
 LINK_BW = 1e9 / 8                   # 1 Gbps in bytes/s
 ITEM_BYTES = 16                     # value + stratum tag + framing
-
-_MESH_NOT_PORTED = ("the SPMD mesh data plane (--mesh, run_spmd_pipeline) "
-                    "is not ported yet: ROADMAP.md Queue 1 item 12 ports it "
-                    "to torch.distributed")
-
 
 def default_capacity(specs, num_sources: int = 8, fanin=(4, 2, 1),
                      interval_ticks=None) -> int:
@@ -467,9 +470,185 @@ def run_pipeline(specs, *, fraction: float = 0.1, ticks: int,
     }
 
 
-def run_spmd_pipeline(*args, **kwargs):
-    """The §III-E pod-scale data plane: not ported yet (raises)."""
-    raise ValueError(_MESH_NOT_PORTED)
+def run_spmd_pipeline(specs, *, fraction: float = 0.1, ticks: int,
+                      n_devices: int = 1, mesh=None, queries=None,
+                      seed: int = 0, mode: str = "whs",
+                      sampler_backend: str = "topk",
+                      allocation: str = "fair",
+                      epoch_ticks: int | None = None,
+                      target_rel_error: float | None = None,
+                      max_fraction: float | None = None,
+                      warmup: bool = True, telemetry: bool = False,
+                      device="cuda", backend: str = "nccl"):
+    """The §III-E data plane end to end on this rank: stream → mesh →
+    merged-summary query plane → per-window answers, as a dict in the
+    ``run_pipeline`` report style. Every rank of the mesh calls it with
+    the same arguments (``spawn_ranks``; ``n_devices == 1`` needs none).
+
+    Every tick is one flat interval batch of the whole pod's arrivals
+    (every rank draws the same stream from the seed and keeps its
+    columns); ``epoch_ticks`` windows run per epoch. With ``queries``
+    tenants the root answers come from merged per-rank sketch summaries
+    (``repro_torch.api.spmd``); ``target_rel_error`` closes the §IV-B
+    loop on the mesh: each epoch's measured per-tenant error (from the
+    merged answers, the same on every rank) moves the shared sample
+    budget, worst tenant first when several share the plane."""
+    if mesh is None:
+        mesh = make_data_mesh(n_devices, device=device, backend=backend)
+    n_dev = mesh.size
+    src = S.StreamSource(specs, seed=seed * 977)
+    per_tick = sum(sp.rate for sp in specs)
+    # item axis: offered load + Poisson slack, padded to split evenly
+    width = int(1.35 * per_tick) + 256
+    width = -(-width // n_dev) * n_dev
+    if target_rel_error is not None and max_fraction is None:
+        max_fraction = 1.0
+    spec = build_spec(specs, fraction=fraction, capacity=width // n_dev,
+                      num_strata=len(specs), allocation=allocation,
+                      seed=seed, mode=mode, sampler_backend=sampler_backend,
+                      queries=queries, target_rel_error=target_rel_error,
+                      max_fraction=max_fraction, telemetry=telemetry)
+    pipe = api.compile(spec, mesh=mesh)
+    epoch_t = min(epoch_ticks or 32, ticks)
+    n_epochs = -(-ticks // epoch_t)
+
+    controller = None
+    trajectory: list[dict] = []
+    budget = float(pipe.local_budget)
+    if target_rel_error is not None and pipe.plan is not None:
+        from repro_torch.runtime.budget import (BudgetConfig,
+                                                BudgetController,
+                                                WorstTenantArbiter)
+
+        cfg = BudgetConfig(min_size=spec.budget.min_size,
+                           max_size=pipe.max_local_budget,
+                           target_rel_error=target_rel_error,
+                           kp=spec.budget.kp, ki=spec.budget.ki)
+        controller = (WorstTenantArbiter(cfg, initial_size=pipe.local_budget)
+                      if len(spec.tenants) > 1 else
+                      BudgetController(cfg, initial_size=pipe.local_budget))
+
+    state = pipe.init()
+    if warmup:  # the first epoch's one-time costs, off the clock
+        v, s, c = S.StreamSource(specs, seed=seed * 977 + 1).batch(
+            epoch_t, width)
+        b = S.rows_to_interval_batch(v, s, c, len(specs))
+        pipe.run_epoch(state, pipe.default_key, b,
+                       budgets=[budget] if pipe.plan else None)
+        state = pipe.init()
+        pipe.trace_counter["traces"] = 0
+
+    from repro_torch.obs import telemetry as obs_telemetry
+
+    state = obs_telemetry.reset(state)   # counters cover measured epochs
+    mesh.reset_ledger()
+    results: list[dict] = []
+    exact_sum, exact_cnt = 0.0, 0
+    dispatches = 0
+    t0 = time.time()
+    for e in range(n_epochs):
+        with span("ingest", epoch=e):
+            v, s, c = src.batch(epoch_t, width)
+            exact_sum += float((v * (np.arange(width)[None, :]
+                                     < c[:, None])).sum())
+            exact_cnt += int(c.sum())
+            b = S.rows_to_interval_batch(v, s, c, len(specs))
+        if pipe.plan is not None:
+            # the tenant path folds the carried global tick into the key
+            with span("epoch_dispatch", epoch=e):
+                state, wa = pipe.run_epoch(state, pipe.default_key, b,
+                                           budgets=[budget])
+            with span("block_until_ready"):
+                rows = pipe.rows(wa)
+            if controller is not None and rows:
+                if hasattr(controller, "last_tenant"):
+                    size, per = controller.update_from_windows(pipe.plan,
+                                                               rows)
+                    entry = dict(step=e, size=size,
+                                 rel_error=max(per.values() or [0.0]),
+                                 tenant=controller.last_tenant,
+                                 tenant_rel_errors=per)
+                else:
+                    rels = [_window_rel_error(w, pipe.plan) for w in rows]
+                    rel = float(np.mean([r for r in rels
+                                         if np.isfinite(r)] or [0.0]))
+                    size = controller.update(rel_error=rel)
+                    entry = dict(step=e, size=size, rel_error=rel)
+                budget = float(size)
+                trajectory.append(entry)
+        else:
+            # the stateless path folds only the epoch-local window index:
+            # fold the epoch in here, or every epoch would reuse the same
+            # selection randomness
+            k_e = prng.fold_in(pipe.default_key, e)
+            with span("epoch_dispatch", epoch=e):
+                state, (sq, mq) = pipe.run_epoch(state, k_e, b)
+            with span("block_until_ready"):
+                sq = [x.cpu().numpy() for x in sq]
+                mq = [x.cpu().numpy() for x in mq]
+            rows = [dict(tick=e * epoch_t + i, sum=float(sq[0][i]),
+                         sum_var=float(sq[1][i]), mean=float(mq[0][i]),
+                         mean_var=float(mq[1][i]))
+                    for i in range(epoch_t)]
+        dispatches += 1
+        results.extend(rows)
+    wall = time.time() - t0
+
+    approx_sum = float(sum(r["sum"] for r in results))
+    bound = 2 * float(np.sqrt(sum(r["sum_var"] for r in results)))
+    acc_loss = abs(approx_sum - exact_sum) / max(abs(exact_sum), 1e-9)
+    ledger = mesh.ledger_summary()
+    out = {
+        "fraction": fraction, "mode": mode, "engine": "spmd",
+        "n_devices": n_dev, "sampler_backend": sampler_backend,
+        "mesh_backend": mesh.backend, "device": str(mesh.device),
+        "dispatches": dispatches, "retraces": pipe.trace_counter["traces"],
+        "approx_sum": approx_sum, "exact_sum": exact_sum,
+        "bound_2sigma": bound, "accuracy_loss": acc_loss,
+        "within_2sigma": abs(approx_sum - exact_sum) <= bound,
+        "items_ingested": exact_cnt,
+        "wall_s": wall,
+        "throughput_items_s": exact_cnt / max(wall, 1e-9),
+        "windows": len(results),
+        # what crossed the ranks in the measured epochs (this rank)
+        "collectives": ledger,
+        "collective_s": sum(r["seconds"] for r in ledger.values()),
+        "host_copies": mesh.host_copies,
+    }
+    if pipe.plan is not None:
+        out["query_layout"] = {
+            n: dict(offset=o, width=wd, kind=k)
+            for n, (o, wd, k) in pipe.plan.layout().items()}
+        out["windows_answers"] = [r["answers"] for r in results
+                                  if "answers" in r]
+        out["windows_bounds"] = [r["bounds"] for r in results
+                                 if "bounds" in r]
+        # the §III-E bandwidth story: what crosses the mesh per window
+        out["summary_bytes_per_window"] = pipe.summary_bytes_per_window
+        out["reservoir_bytes_per_window"] = pipe.reservoir_bytes_per_window
+    if controller is not None:
+        out["controller"] = trajectory
+        out["final_sample_sizes"] = [budget]
+    if telemetry and pipe.plan is not None:
+        from repro_torch.obs.metrics import metrics_text
+        from repro_torch.obs.telemetry import snapshot, tenant_rel_bounds
+        from repro_torch.obs.trace import get_tracer
+
+        snap = snapshot(state)
+        snap["slot_rel_bound_mean"] = np.asarray(
+            snap["slot_rel_bound_mean"]).tolist()
+        snap["tenant_rel_bounds"] = tenant_rel_bounds(pipe, state)
+        out["telemetry"] = snap
+        out["metrics"] = metrics_text(
+            pipeline=pipe, state=state, tracer=get_tracer(),
+            controller=controller)
+    return out
+
+
+def _spmd_rank(kwargs: dict) -> dict:
+    """One rank of ``--mesh N``: the rank's report (rank 0's is
+    printed)."""
+    return run_spmd_pipeline(**kwargs)
 
 
 def stream_specs(dist: str):
@@ -531,8 +710,16 @@ def main(argv=None):
                     help="budget ceiling for the error-budget controller "
                          "(fraction of window capacity; default 1.0)")
     ap.add_argument("--mesh", type=int, default=None, metavar="N",
-                    help="the §III-E SPMD data plane on N devices: not "
-                         "ported yet (ROADMAP.md Queue 1 item 12)")
+                    help="run the §III-E SPMD data plane on N ranks of a "
+                         "'data' mesh (torch.distributed, one process a "
+                         "rank) instead of the emulated tree; with "
+                         "--queries the tenants answer from merged "
+                         "summaries — only sketch summaries cross ranks")
+    ap.add_argument("--mesh-backend", default=None, choices=["nccl", "gloo"],
+                    help="the mesh's collective backend: nccl (one card "
+                         "a rank; the default on cuda) or gloo (CPU "
+                         "ranks, the default on cpu, or ranks sharing "
+                         "one card)")
     ap.add_argument("--json", default=None, metavar="PATH",
                     help="write the result report to PATH")
     ap.add_argument("--telemetry", action="store_true",
@@ -547,8 +734,6 @@ def main(argv=None):
                     help="where the pipeline runs (default: the CUDA card; "
                          "it raises without one)")
     args = ap.parse_args(argv)
-    if args.mesh is not None:
-        raise ValueError(_MESH_NOT_PORTED)
 
     specs = stream_specs(args.dist)
     registry = None
@@ -556,24 +741,50 @@ def main(argv=None):
         from repro_torch.query.registry import QueryRegistry
 
         registry = QueryRegistry.from_tokens(args.queries)
-    if args.telemetry and args.engine != "scan":
+    if args.telemetry and args.mesh is None and args.engine != "scan":
         # telemetry leaves live in the compiled pipeline's state
         args.engine = "scan"
     strata_spec = None
     if args.adaptive_strata:
+        if args.mesh is not None:
+            raise ValueError("--adaptive-strata needs the scan engine, "
+                             "not --mesh")
         args.engine = "scan"   # the route table lives in the scan state
         strata_spec = StrataSpec(num_keys=len(specs), adaptive=True)
-    r = run_pipeline(specs, fraction=args.fraction, ticks=args.ticks,
-                     allocation=args.allocation, mode=args.mode,
-                     engine=args.engine, sampler_backend=args.backend,
-                     warmup_ticks=2, epoch_ticks=args.epoch_ticks,
-                     queries=registry,
-                     target_rel_error=args.target_rel_error,
-                     max_fraction=args.max_fraction,
-                     telemetry=args.telemetry, strata=strata_spec,
-                     device=args.device)
+    if args.mesh is not None:
+        backend = args.mesh_backend or (
+            "nccl" if args.device == "cuda" else "gloo")
+        kwargs = dict(fraction=args.fraction, ticks=args.ticks,
+                      n_devices=args.mesh, queries=registry, mode=args.mode,
+                      sampler_backend=args.backend,
+                      allocation=args.allocation,
+                      epoch_ticks=args.epoch_ticks,
+                      target_rel_error=args.target_rel_error,
+                      max_fraction=args.max_fraction,
+                      telemetry=args.telemetry, device=args.device,
+                      backend=backend)
+        if args.mesh == 1:
+            r = run_spmd_pipeline(specs, **kwargs)
+        else:
+            # by the module's name: under ``python -m`` this is __main__
+            from repro_torch.launch.analytics import _spmd_rank
+
+            r = spawn_ranks(_spmd_rank, args.mesh,
+                            args=(dict(kwargs, specs=specs),),
+                            device=args.device, backend=backend)[0]
+    else:
+        r = run_pipeline(specs, fraction=args.fraction, ticks=args.ticks,
+                         allocation=args.allocation, mode=args.mode,
+                         engine=args.engine, sampler_backend=args.backend,
+                         warmup_ticks=2, epoch_ticks=args.epoch_ticks,
+                         queries=registry,
+                         target_rel_error=args.target_rel_error,
+                         max_fraction=args.max_fraction,
+                         telemetry=args.telemetry, strata=strata_spec,
+                         device=args.device)
     print(f"dist={args.dist} mode={args.mode} engine={r['engine']} "
-          f"backend={args.backend} fraction={r['fraction']:.0%}")
+          f"backend={args.backend} fraction={r['fraction']:.0%}"
+          + (f" mesh={r['n_devices']}dev" if args.mesh else ""))
     print(f"  SUM ≈ {r['approx_sum']:.4e} ± {r['bound_2sigma']:.2e} "
           f"(exact {r['exact_sum']:.4e}; within 2σ: {r['within_2sigma']})")
     print(f"  accuracy loss  {r['accuracy_loss']:.5%}")
@@ -581,13 +792,27 @@ def main(argv=None):
         kinds = [op["kind"] for op in r["strata_ops"]]
         print(f"  strata         {kinds.count('split')} splits, "
               f"{kinds.count('merge')} merges; route {r['strata_route']}")
-    print(f"  bandwidth kept {r['bandwidth_fraction']:.1%} of ingested "
-          f"items")
+    if "bandwidth_fraction" in r:
+        print(f"  bandwidth kept {r['bandwidth_fraction']:.1%} of ingested "
+              f"items")
+    elif "summary_bytes_per_window" in r:
+        # both per rank, shipped per window
+        print(f"  cross-device   {r['summary_bytes_per_window']} B/window "
+              f"of sketch summaries per device (reservoir all-gather "
+              f"would ship {r['reservoir_bytes_per_window']} B and grow "
+              f"with the sample budget)")
+    if args.mesh:
+        where = (f"on {r['device']} ({r['mesh_backend']}, {r['n_devices']} "
+                 f"ranks)")
+        kind = "epoch"
+    else:
+        where, kind = f"on {args.device}", "step"
     print(f"  throughput     {r['throughput_items_s']:.0f} items/s "
           f"({r['items_ingested']} items, {r['windows']} windows, "
-          f"{r['dispatches']} step dispatches) on {args.device}")
-    print(f"  latency        {r['latency_s'] * 1e3:.1f} ms/window "
-          f"(+{r['latency_window_ticks']:.1f} tick window wait)")
+          f"{r['dispatches']} {kind} dispatches) {where}")
+    if "latency_s" in r:
+        print(f"  latency        {r['latency_s'] * 1e3:.1f} ms/window "
+              f"(+{r['latency_window_ticks']:.1f} tick window wait)")
     if registry is not None and r.get("windows_answers"):
         last_a, last_b = r["windows_answers"][-1], r["windows_bounds"][-1]
         print("  standing queries (last window, ± bound):")

@@ -21,12 +21,20 @@ queries (sliding-window quantiles, decayed heavy hitters); ``stop()``
 drains the queues clean. ``--inject-straggler`` holds one edge shard
 back for an epoch to show the partial-window path.
 
-Everything runs on the CUDA card unless ``--device cpu`` is asked for.
-``--mesh`` is not ported yet and raises, naming ROADMAP Queue 1 item 12.
+``--mesh N`` runs the one-shot telemetry plane on N ranks of a
+``torch.distributed`` mesh instead (``repro_torch.compile(spec,
+mesh=...)``): the model serves in this process, then every rank samples
+its shard of each batch's records and the dashboard tenant answers from
+merged sketch summaries; no raw record crosses a rank. NCCL runs one
+card a rank, gloo (``--mesh-backend gloo``) CPU ranks or ranks sharing
+one card. Everything runs on the CUDA card unless ``--device cpu`` is
+asked for.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \\
         --requests 64 --decode-len 16
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --smoke --mesh 2 \\
+        --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --serve-loop \\
         --duration 5 --inject-straggler --device cpu
 """
@@ -42,6 +50,7 @@ from repro_torch import api
 from repro_torch.configs import registry
 from repro_torch.data import stream as S
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import make_data_mesh, spawn_ranks
 from repro_torch.models import model as M
 from repro_torch.obs import telemetry as obs_telemetry
 from repro_torch.obs.metrics import metrics_text
@@ -51,11 +60,6 @@ from repro_torch.query.registry import QueryRegistry
 
 NUM_CLASSES = 4          # request classes = telemetry strata
 EDGE_NODES = 2           # telemetry aggregators in front of the root
-
-_MESH_NOT_PORTED = ("--mesh (the telemetry plane on a device mesh) is not "
-                    "ported yet: ROADMAP.md Queue 1 item 12 ports it to "
-                    "torch.distributed")
-
 
 def dashboard_registry() -> QueryRegistry:
     """The dashboard's standing queries, registered once."""
@@ -143,8 +147,16 @@ def main(argv=None):
                          "over the second half, then retire + re-admit it "
                          "and print what the program cache built")
     ap.add_argument("--mesh", type=int, default=None, metavar="N",
-                    help="the telemetry plane on an N-device mesh: not "
-                         "ported yet (ROADMAP.md Queue 1 item 12)")
+                    help="run the telemetry plane on N ranks of a 'data' "
+                         "mesh (repro_torch.compile(spec, mesh=...)): each "
+                         "rank samples its shard of every batch's records "
+                         "and the dashboard tenant answers from merged "
+                         "sketch summaries — no raw record crosses ranks")
+    ap.add_argument("--mesh-backend", default=None, choices=["nccl", "gloo"],
+                    help="the mesh's collective backend: nccl (one card "
+                         "a rank; the default on cuda) or gloo (CPU "
+                         "ranks, the default on cpu, or ranks sharing "
+                         "one card)")
     ap.add_argument("--telemetry", action="store_true",
                     help="carry EpochTelemetry counters inside the "
                          "pipeline state (repro_torch.obs) — sample state "
@@ -196,9 +208,6 @@ def main(argv=None):
         ap.error(f"--requests {args.requests} < --batch {args.batch}: "
                  f"no serving batch would run (requests are served in "
                  f"whole batches)")
-    if args.mesh is not None:
-        raise ValueError(_MESH_NOT_PORTED)
-
     dev = resolve_device(args.device)
     if args.serve_loop:
         return _serve_loop(args, dev)
@@ -231,73 +240,96 @@ def main(argv=None):
     # answered at the root each window.
     capacity = max(64, args.batch)
     m = sum(len(v) for v, _ in tick_records)
-    pipe = api.compile(telemetry_spec(capacity, args.telemetry_fraction,
-                                      telemetry=args.telemetry), device=dev)
-    state = pipe.init()
-    with span("ingest", ticks=len(tick_records)):
-        batch = S.ticks_to_ingest(tick_records, n_nodes=EDGE_NODES,
-                                  width=capacity)
-    if args.hot_admit:
-        from repro_torch.api.pipeline import program_cache_stats
+    # With --mesh the same spec lowers onto the §III-E data plane instead:
+    # every rank samples its shard of each batch's records and the
+    # dashboard answers from merged sketch summaries.
+    if args.mesh:
+        backend = args.mesh_backend or (
+            "nccl" if dev.type == "cuda" else "gloo")
+        job = dict(records=tick_records, capacity=capacity, n=args.mesh,
+                   fraction=args.telemetry_fraction,
+                   telemetry=args.telemetry, device=args.device,
+                   backend=backend, metrics=bool(args.metrics_dump))
+        if args.mesh == 1:
+            plane = _mesh_plane(job)
+        else:
+            # by the module's name: under ``python -m`` this is __main__
+            from repro_torch.launch.serve import _mesh_plane as rank_fn
 
-        h = max(1, len(tick_records) // 2)
-        with span("epoch_dispatch", ticks=h):
-            state, wa_a = pipe.run_epoch(state, pipe.default_key,
-                                         batch.values[:h], batch.strata[:h],
-                                         batch.counts[:h])
-        rows_a = pipe.rows(wa_a)
-        m0 = program_cache_stats()["misses"]
-        slo = (QueryRegistry().register_count("n")
-               .register_mean("mean_ms")
-               .register_quantile("p999_ms", qs=(0.999,), capacity=128)
-               .as_tenant("slo"))
-        # hot admit: a slot edit on the carried state, answers resume
-        # mid-stream; the dashboard tenant's sketches are untouched
-        pipe2, state = pipe.admit(state, slo)
-        with span("epoch_dispatch", ticks=len(batch.values) - h):
-            state, wa_b = pipe2.run_epoch(state, pipe2.default_key,
-                                          batch.values[h:], batch.strata[h:],
-                                          batch.counts[h:])
-        rows_b = pipe2.rows(wa_b)
-        m1 = program_cache_stats()["misses"]
-        pipe3, state = pipe2.retire(state, "slo")
-        pipe4, state = pipe3.admit(state, slo)
-        m2 = program_cache_stats()["misses"]
-        slo_n = float(sum(pipe2.answer(r["answers"], "n", tenant="slo")[0]
-                          for r in rows_b))
-        p999 = float(pipe2.answer(rows_b[-1]["answers"], "p999_ms",
-                                  tenant="slo")[0])
-        print(f"hot-admit 'slo' tenant after {h}/{len(tick_records)} "
-              f"ticks: {len(rows_b)} windows answered mid-stream "
-              f"({slo_n:.0f} requests seen, p99.9 ≈ {p999:.2f} ms)")
-        print(f"  churn cost: admit into a new slot group traced "
-              f"{m1 - m0} program(s); retire + re-admit into the warm "
-              f"slot traced {m2 - m1} (plan cache: "
-              f"{program_cache_stats()['hits']} hits)")
-        rows = rows_a + rows_b
-        row_pipes = [pipe] * len(rows_a) + [pipe2] * len(rows_b)
-        pipe = pipe4
+            plane = spawn_ranks(rank_fn, args.mesh, args=(job,),
+                                device=args.device, backend=backend)[0]
+        rows = plane["rows"]
+        row_pipes = [_PlaneView(plane["layout"])] * len(rows)
+        n_queries, snap = plane["k"], plane["snapshot"]
     else:
-        # --metrics-every N slices the epoch into N-tick chunks and
-        # exposes the /metrics surface between them; without it the one
-        # chunk is the whole epoch.
-        n_ticks = len(batch.values)
-        step = max(args.metrics_every or n_ticks, 1)
-        rows = []
-        for s0 in range(0, n_ticks, step):
-            s1 = min(s0 + step, n_ticks)
-            with span("epoch_dispatch", ticks=s1 - s0):
-                state, wa = pipe.run_epoch(
-                    state, pipe.default_key, batch.values[s0:s1],
-                    batch.strata[s0:s1], batch.counts[s0:s1])
-            with span("block_until_ready"):
-                _sync(dev)
-            rows.extend(pipe.rows(wa))
-            if args.metrics_every:
-                print(f"--- metrics after {s1}/{n_ticks} ticks ---")
-                print(metrics_text(pipeline=pipe, state=state,
-                                   tracer=get_tracer()))
-        row_pipes = [pipe] * len(rows)
+        pipe = api.compile(telemetry_spec(capacity, args.telemetry_fraction,
+                                          telemetry=args.telemetry), device=dev)
+        state = pipe.init()
+        with span("ingest", ticks=len(tick_records)):
+            batch = S.ticks_to_ingest(tick_records, n_nodes=EDGE_NODES,
+                                      width=capacity)
+        if args.hot_admit:
+            from repro_torch.api.pipeline import program_cache_stats
+
+            h = max(1, len(tick_records) // 2)
+            with span("epoch_dispatch", ticks=h):
+                state, wa_a = pipe.run_epoch(state, pipe.default_key,
+                                             batch.values[:h], batch.strata[:h],
+                                             batch.counts[:h])
+            rows_a = pipe.rows(wa_a)
+            m0 = program_cache_stats()["misses"]
+            slo = (QueryRegistry().register_count("n")
+                   .register_mean("mean_ms")
+                   .register_quantile("p999_ms", qs=(0.999,), capacity=128)
+                   .as_tenant("slo"))
+            # hot admit: a slot edit on the carried state, answers resume
+            # mid-stream; the dashboard tenant's sketches are untouched
+            pipe2, state = pipe.admit(state, slo)
+            with span("epoch_dispatch", ticks=len(batch.values) - h):
+                state, wa_b = pipe2.run_epoch(state, pipe2.default_key,
+                                              batch.values[h:], batch.strata[h:],
+                                              batch.counts[h:])
+            rows_b = pipe2.rows(wa_b)
+            m1 = program_cache_stats()["misses"]
+            pipe3, state = pipe2.retire(state, "slo")
+            pipe4, state = pipe3.admit(state, slo)
+            m2 = program_cache_stats()["misses"]
+            slo_n = float(sum(pipe2.answer(r["answers"], "n", tenant="slo")[0]
+                              for r in rows_b))
+            p999 = float(pipe2.answer(rows_b[-1]["answers"], "p999_ms",
+                                      tenant="slo")[0])
+            print(f"hot-admit 'slo' tenant after {h}/{len(tick_records)} "
+                  f"ticks: {len(rows_b)} windows answered mid-stream "
+                  f"({slo_n:.0f} requests seen, p99.9 ≈ {p999:.2f} ms)")
+            print(f"  churn cost: admit into a new slot group traced "
+                  f"{m1 - m0} program(s); retire + re-admit into the warm "
+                  f"slot traced {m2 - m1} (plan cache: "
+                  f"{program_cache_stats()['hits']} hits)")
+            rows = rows_a + rows_b
+            row_pipes = [pipe] * len(rows_a) + [pipe2] * len(rows_b)
+            pipe = pipe4
+        else:
+            # --metrics-every N slices the epoch into N-tick chunks and
+            # exposes the /metrics surface between them; without it the one
+            # chunk is the whole epoch.
+            n_ticks = len(batch.values)
+            step = max(args.metrics_every or n_ticks, 1)
+            rows = []
+            for s0 in range(0, n_ticks, step):
+                s1 = min(s0 + step, n_ticks)
+                with span("epoch_dispatch", ticks=s1 - s0):
+                    state, wa = pipe.run_epoch(
+                        state, pipe.default_key, batch.values[s0:s1],
+                        batch.strata[s0:s1], batch.counts[s0:s1])
+                with span("block_until_ready"):
+                    _sync(dev)
+                rows.extend(pipe.rows(wa))
+                if args.metrics_every:
+                    print(f"--- metrics after {s1}/{n_ticks} ticks ---")
+                    print(metrics_text(pipeline=pipe, state=state,
+                                       tracer=get_tracer()))
+            row_pipes = [pipe] * len(rows)
+        n_queries, snap = pipe.plan.k, obs_telemetry.snapshot(state)
     # rows from before and after a hot admit carry different layouts:
     # answer each row through the pipeline that produced it
     pipe_of = {id(r): p for p, r in zip(row_pipes, rows)}
@@ -321,9 +353,11 @@ def main(argv=None):
     exact_all = np.concatenate([v for v, _ in tick_records])
     exact_mean = float(exact_all.mean())
     n_kept = int(sum(r["n_sampled"] for r in rows))
+    plane_name = (f"{args.mesh}-device SPMD mesh (merged sketch summaries)"
+                  if args.mesh else f"{EDGE_NODES}→1 hierarchy")
     print(f"served {m} requests in {wall:.1f}s")
     print(f"telemetry plane: {len(rows)} windows through the "
-          f"{EDGE_NODES}→1 hierarchy, {pipe.plan.k} standing queries, "
+          f"{plane_name}, {n_queries} standing queries, "
           f"1 fused dispatch, {n_kept}/{m} records at the root")
     print(f"  QPS              ≈ {n_est / max(wall, 1e-9):.2f}")
     print(f"  total latency-ms ≈ {total_est:.1f} "
@@ -333,13 +367,15 @@ def main(argv=None):
           f"(exact {exact_mean:.2f})")
     print(f"  p50 / p99 ms     ≈ {float(p50):.2f} / {float(p99):.2f} "
           f"(sketch rank-ε {float(bnd('latency_q_ms', last)[0]):.3f})")
-    snap = obs_telemetry.snapshot(state)
     if snap is not None:
         print(f"  telemetry        {snap['windows']} windows, realized "
               f"±2σ {snap['bound_2sigma']:.3e} "
-              f"(rel {snap['rel_bound_2sigma']:.4f})")
+              f"(rel {snap['rel_bound_2sigma']:.4f})"
+              + (f", {snap['merge_bytes']:.0f} sketch bytes merged"
+                 if args.mesh else ""))
     if args.metrics_dump:
-        text = metrics_text(pipeline=pipe, state=state, tracer=get_tracer())
+        text = (plane["metrics"] if args.mesh else
+                metrics_text(pipeline=pipe, state=state, tracer=get_tracer()))
         with open(args.metrics_dump, "w") as f:
             f.write(text)
         print(f"  wrote {args.metrics_dump}")
@@ -347,6 +383,46 @@ def main(argv=None):
         get_tracer().save(args.trace)
         print(f"  wrote {args.trace}")
     return mean_est, exact_mean
+
+
+class _PlaneView:
+    """The mesh pipeline's answer routing as rank 0 reported it: what
+    the printing code reads of a pipeline."""
+
+    def __init__(self, layout: dict):
+        self.layout = layout
+
+    def answer(self, vec, name: str, tenant: str | None = None):
+        o, w, _ = self.layout[name]
+        return np.asarray(vec)[..., o:o + w]
+
+
+def _mesh_plane(job: dict) -> dict:
+    """One rank of the one-shot telemetry plane on the mesh: the records
+    as one flat batch a tick, split over the ranks; returns the rows and
+    what the report prints (the same on every rank)."""
+    n = job["n"]
+    mesh = make_data_mesh(n, device=job["device"], backend=job["backend"])
+    capacity = job["capacity"]
+    pipe = api.compile(telemetry_spec(capacity, job["fraction"],
+                                      telemetry=job["telemetry"]),
+                       mesh=mesh)
+    records = job["records"]
+    with span("ingest", ticks=len(records)):
+        flat = S.ticks_to_ingest(records, n_nodes=1, width=capacity)
+        batches = S.rows_to_interval_batch(
+            flat.values[:, 0], flat.strata[:, 0], flat.counts[:, 0],
+            NUM_CLASSES, width=-(-capacity // n) * n)
+    state = pipe.init()
+    with span("epoch_dispatch", ticks=len(records)):
+        state, wa = pipe.run_epoch(state, pipe.default_key, batches)
+    with span("block_until_ready"):
+        rows = pipe.rows(wa)
+    return dict(rows=rows, layout=pipe.query_layout("dashboard"),
+                k=pipe.plan.k, snapshot=obs_telemetry.snapshot(state),
+                metrics=(metrics_text(pipeline=pipe, state=state,
+                                      tracer=get_tracer())
+                         if job["metrics"] else None))
 
 
 def _serve_loop(args, dev):

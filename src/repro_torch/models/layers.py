@@ -6,8 +6,8 @@ names and its ``[d_in, d_out]`` weight layout (``x @ w``), so carrying
 weights across is a copy; they live in ``Params`` modules (a nested dict
 of tensors as an ``nn.Module``). Activation sharding
 (``launch.meshctx.shard``) is a no-op without a mesh and is dropped; the
-mesh-only head-repeated attention path waits for the distributed slice
-(ROADMAP Queue 1 item 12).
+mesh-only head-repeated attention path waits for model sharding
+(ROADMAP Queue 1 item 12b).
 """
 from __future__ import annotations
 

@@ -166,6 +166,7 @@ def render_pipeline_metrics(pipeline=None, state=None, tracer=None,
     dict), which adds the ``repro_serve_*`` families; ``extra`` is a flat
     ``{gauge_name: value}`` dict of driver-specific numbers."""
     from repro_torch.api.pipeline import program_cache_stats
+    from repro_torch.api.spmd import spmd_program_cache_stats
     from repro_torch.obs.telemetry import snapshot, tenant_rel_bounds
     from repro_torch.query.compiler import plan_cache_stats
 
@@ -232,6 +233,28 @@ def render_pipeline_metrics(pipeline=None, state=None, tracer=None,
     reg.gauge("repro_program_cache_hit_rate",
               st["hits"] / total if total else 0.0,
               "Epoch-program cache hit rate")
+    st = spmd_program_cache_stats()
+    total = st["misses"] + st["hits"]
+    reg.counter("repro_spmd_program_cache_misses_total", st["misses"],
+                "SPMD plan-cache misses (mesh programs built)")
+    reg.counter("repro_spmd_program_cache_hits_total", st["hits"],
+                "SPMD plan-cache hits")
+    reg.gauge("repro_spmd_program_cache_hit_rate",
+              st["hits"] / total if total else 0.0,
+              "SPMD plan-cache hit rate")
+
+    if pipeline is not None:
+        tc = getattr(pipeline, "trace_counter", None)
+        if isinstance(tc, dict) and "traces" in tc:
+            reg.counter("repro_epoch_traces_total", tc["traces"],
+                        "Epoch programs built for this pipeline")
+        if getattr(pipeline, "mesh", None) is not None:
+            reg.gauge("repro_spmd_summary_bytes_per_window",
+                      float(pipeline.summary_bytes_per_window),
+                      "Static per-window sketch-summary byte model")
+            reg.gauge("repro_spmd_reservoir_bytes_per_window",
+                      float(pipeline.reservoir_bytes_per_window),
+                      "Static per-window raw-reservoir byte model")
 
     if tracer is not None:
         for name, secs in sorted(tracer.durations.items()):

@@ -38,7 +38,9 @@ class EpochTelemetry(NamedTuple):
         slot's relative bound ``bound/max(|answer|, 1e-9)``, one slot per
         column of the tenant plan's padded answer vector (``n_out`` of its
         core; empty without tenants).
-    ``merge_bytes`` f32[] — the mesh counter; zero in this port.
+    ``merge_bytes`` f32[] — sketch-summary bytes shipped across the mesh
+        (``api.spmd``: windows × ``summary_bytes_per_window``); zero on a
+        single device.
     ``late_shards``/``widened_windows`` i32[] — host-folded straggler
         accounting (see ``StragglerMonitor``).
     """

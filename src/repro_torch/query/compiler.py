@@ -28,9 +28,17 @@ here, with the same masking law: an active slot's answers and state are
 untouched, an inactive one freezes and answers zeros).
 ``SlottedTenantPlan`` maps tenant names onto slots and the padded
 answer vector onto the public one; its ``admit``/``retire`` return a new
-plan and a qstate transform (tenant churn as a state edit) and
-``slot_manifest`` describes the slots for checkpoints. ``evaluate_spmd``
-(the mesh path) and ``MultiTenantPlan`` are not ported.
+plan and a qstate transform (tenant churn as a state edit; on the mesh
+the state carries a leading rank axis, ``slot_axis=1``) and
+``slot_manifest`` describes the slots for checkpoints.
+
+The mesh path (``evaluate_spmd``, with ``draws_spmd``): every rank folds
+its shard's sample into its own sketches, and the window is answered
+from summaries merged across the ranks of a ``launch.mesh.DataMesh``:
+CLT moments and histogram bins summed, counts summed as exact integers,
+quantile buffers and count-min tables gathered and merged with merge
+randomness every rank draws alike. ``MultiTenantPlan``, which the slot
+plan replaced bit for bit, is not ported: no path reaches it.
 """
 from __future__ import annotations
 
@@ -49,6 +57,8 @@ from repro_torch.query.registry import QuerySpec
 
 # fold_in tag separating the query plane's PRNG stream from the sampler's
 _QUERY_KEY_TAG = 0x51C7
+# fold_in tag of the merge randomness every rank draws alike (mesh path)
+_MERGE_KEY_TAG = 0x4D52
 # fold_in tag for the windowed-quantile ring's query-time merge randomness
 _WINDOW_MERGE_TAG = 0x574D
 _SKETCH_KINDS = ("quantile", "windowed_quantile")
@@ -141,6 +151,27 @@ class CompiledQueryPlan:
         both = torch.stack([kq, km], dim=-3)[..., None, :]
         return prng.uniform(prng.fold_in(both, lv), ())
 
+    def draws_spmd(self, keys: torch.Tensor, rank: int
+                   ) -> torch.Tensor | None:
+        """f32 ``[..., 3, K, L]``: the mesh path's uniforms for root keys
+        ``[..., 2]`` on rank ``rank`` — this rank's sketch update (row 0,
+        from ``fold_in(kq, rank)``), the merge of the gathered quantile
+        summaries (row 1, from ``fold_in(kq, 0x4D52)``) and of the
+        gathered windowed rings (row 2, that key folded with
+        ``0x574D``), as the reference's ``evaluate_spmd`` draws them.
+        ``None`` when no spec draws."""
+        if not self._levels:
+            return None
+        dev = keys.device
+        kq = prng.fold_in(prng.fold_in(keys, _QUERY_KEY_TAG)[..., None, :],
+                          torch.arange(self.k, device=dev))
+        k_merge = prng.fold_in(kq, _MERGE_KEY_TAG)
+        rows = [prng.fold_in(kq, rank), k_merge,
+                prng.fold_in(k_merge, _WINDOW_MERGE_TAG)]
+        lv = torch.arange(self._levels, device=dev)
+        both = torch.stack(rows, dim=-3)[..., None, :]
+        return prng.uniform(prng.fold_in(both, lv), ())
+
     def _const(self, name: str, make, device) -> torch.Tensor:
         key = (name, str(device))
         if key not in self._consts:
@@ -218,6 +249,113 @@ class CompiledQueryPlan:
                 st2 = sketches.windowed_quantile_update(
                     draws[0, i], st, batch.value, w_item)
                 merged = sketches.windowed_quantile_merged(draws[1, i], st2)
+                a = sketches.quantile_query(merged, qs)
+                b = torch.ones_like(qs) * merged.rank_error_bound
+            else:  # pragma: no cover — the registry validates kinds
+                raise AssertionError(sp.kind)
+            outs.append(a.float())
+            bnds.append(b.float())
+            new_state.append(st2)
+        return tuple(new_state), torch.cat(outs), torch.cat(bnds)
+
+    def spmd_share(self, res: SampleResult, y, mesh):
+        """This shard's share ``Σc_src / Σ_ranks Σc_src`` of the window's
+        estimated population: the MEAN's merge weight."""
+        total_local = seq_sum(y * res.meta.weight)[..., 0]
+        return total_local / torch.clamp_min(mesh.psum(total_local), 1.0)
+
+    def evaluate_spmd(self, draws, batch: IntervalBatch, res: SampleResult,
+                      state: tuple, mesh, shared=None, share=None) -> tuple:
+        """``evaluate`` on the mesh: ``batch``/``res`` are this rank's
+        shard and sample, ``state`` its own sketches, ``draws``
+        ``self.draws_spmd(key, mesh.rank)`` for the window's root key.
+        Returns ``(state', answers, bounds)``: the state is this rank's,
+        the answers and bounds the same bits on every rank, from merged
+        summaries only:
+
+        * sum/mean: per-rank estimate and variance summed over ranks (the
+          mean re-weighted by each shard's population ``share``);
+        * count: the pre-sampling counts ``Σ c_i·W^in_i``, exact integers,
+          so the answer is the same at every rank count;
+        * histogram: per-bin estimates and variances summed;
+        * sketches: updated locally, then gathered and merged
+          (``quantile_merge_stacked``; count-min tables summed and the
+          candidate keys gathered for one top-k refresh)."""
+        if shared is None:
+            shared = self.shared(batch, res)
+        w_item, y, s1, s2 = shared
+        if share is None:
+            share = self.spmd_share(res, y, mesh)
+        dev = batch.value.device
+        x = self.num_strata
+        psum = mesh.psum
+        # Σ Y_i·W_i feeds the mean and, unrounded by FMAs, the share
+        ht_total = seq_sum(y * res.meta.weight)[..., 0]
+        outs, bnds, new_state = [], [], []
+        for i, sp in enumerate(self.specs):
+            st = state[i]
+            if sp.kind == "sum":
+                q = err.approx_sum_from_moments(y, s1, s2, res.meta)
+                a = psum(q.estimate)[None]
+                b, st2 = 2.0 * sqrt_rn(psum(q.variance))[None], ()
+            elif sp.kind == "count":
+                # exact: C_i·W^in_i needs no sample, and sums of integer
+                # f32s are the same in every order and split
+                a = psum((res.c * batch.meta.weight).sum())[None]
+                b, st2 = torch.zeros(1, dtype=torch.float32, device=dev), ()
+            elif sp.kind == "mean":
+                q = err.approx_mean_from_moments(y, s1, s2, res.meta,
+                                                 ht_total)
+                a = psum(q.estimate * share)[None]
+                b = 2.0 * sqrt_rn(psum(q.variance * share * share))[None]
+                st2 = ()
+            elif sp.kind == "histogram":
+                edges = self._const(
+                    sp.name, lambda sp=sp: _linspace_const(sp.lo, sp.hi,
+                                                           sp.bins + 1), dev)
+                q = weighted_histogram(batch, res, x, edges)
+                a = psum(q.estimate)
+                b, st2 = 2.0 * sqrt_rn(psum(q.variance)), ()
+            elif sp.kind == "quantile":
+                qs = self._const(sp.name, lambda sp=sp: np.asarray(
+                    sp.qs, np.float32), dev)
+                st2 = sketches.quantile_update(draws[0, i], st, batch.value,
+                                               w_item)
+                g = sketches.QuantileSketch(
+                    *(mesh.all_gather(v) for v in st2))
+                merged = sketches.quantile_merge_stacked(draws[1, i], g)
+                a = sketches.quantile_query(merged, qs)
+                b = torch.ones_like(qs) * merged.rank_error_bound
+            elif sp.kind in ("heavy_hitters", "decayed_heavy_hitters"):
+                keys = sketches.hh_item_key(batch.value)
+                if sp.kind == "heavy_hitters":
+                    st2 = sketches.hh_update(st, keys, w_item)
+                else:
+                    # decay is linear: Σ of decayed tables = decayed Σ
+                    st2 = sketches.hh_decayed_update(st, keys, w_item,
+                                                     sp.decay)
+                # counts are linear: summed; only the k candidate keys
+                # are gathered
+                g_counts = psum(st2.counts)
+                g_keys = mesh.all_gather(st2.key, tiled=True)
+                mk, me = sketches._refresh_topk(g_counts, g_keys, sp.k)
+                eps_w = sketches.hh_error_bound(sp.width,
+                                                torch.sum(g_counts[0]))
+                a = torch.cat([mk.float(), me])
+                b = torch.cat([me.new_zeros(sp.k), me.new_ones(sp.k) * eps_w])
+            elif sp.kind == "windowed_quantile":
+                qs = self._const(sp.name, lambda sp=sp: np.asarray(
+                    sp.qs, np.float32), dev)
+                st2 = sketches.windowed_quantile_update(
+                    draws[0, i], st, batch.value, w_item)
+                # every rank's ring, rank × slot flattened into one stack
+                g = [mesh.all_gather(v) for v in st2[:4]]
+                stacked = sketches.QuantileSketch(
+                    value=g[0].reshape((-1,) + g[0].shape[-2:]),
+                    weight=g[1].reshape((-1,) + g[1].shape[-2:]),
+                    compactions=g[2].reshape(-1), err_q2=g[3].reshape(-1))
+                merged = sketches.quantile_merge_stacked(draws[2, i],
+                                                         stacked)
                 a = sketches.quantile_query(merged, qs)
                 b = torch.ones_like(qs) * merged.rank_error_bound
             else:  # pragma: no cover — the registry validates kinds
@@ -330,16 +468,35 @@ class SlotPlanCore:
         """Per group, ``template.draws(keys)``."""
         return tuple(tmpl.draws(keys) for tmpl, _ in self.groups)
 
+    def draws_spmd(self, keys: torch.Tensor, rank: int) -> tuple:
+        """Per group, ``template.draws_spmd(keys, rank)``."""
+        return tuple(tmpl.draws_spmd(keys, rank) for tmpl, _ in self.groups)
+
     def evaluate(self, draws, batch: IntervalBatch, res: SampleResult,
                  state: tuple) -> tuple:
         """(state', padded answers f32[n_out], padded bounds f32[n_out])."""
+        return self._eval(draws, batch, res, state,
+                          lambda tmpl, dr, st, shared: tmpl.evaluate(
+                              dr, batch, res, st, shared))
+
+    def evaluate_spmd(self, draws, batch: IntervalBatch, res: SampleResult,
+                      state: tuple, mesh, share=None) -> tuple:
+        """``evaluate`` on the mesh (``CompiledQueryPlan.evaluate_spmd``
+        per slot, ``share`` the mean's merge weight when the caller has
+        it). Every slot, active or not, runs the same collectives on
+        every rank, so the ranks stay in step."""
+        return self._eval(draws, batch, res, state,
+                          lambda tmpl, dr, st, shared: tmpl.evaluate_spmd(
+                              dr, batch, res, st, mesh, shared, share))
+
+    def _eval(self, draws, batch, res, state, eval_one) -> tuple:
         states, outs, bnds = [], [], []
         for (tmpl, n), (mask, st), dr in zip(self.groups, state, draws):
             shared = tmpl.shared(batch, res)
             rows, ans, bnd = [], [], []
             for s in range(n):
                 old = _tree_map(lambda v, s=s: v[s], st)
-                new, a, b = tmpl.evaluate(dr, batch, res, old, shared)
+                new, a, b = eval_one(tmpl, dr, old, shared)
                 m = mask[s]
                 rows.append(_tree_map(
                     lambda nw, od, m=m: torch.where(m, nw, od), new, old))
@@ -412,6 +569,11 @@ class SlottedTenantPlan:
         """Standing queries over the live tenants."""
         return sum(len(e[1]) for e in self.entries)
 
+    @property
+    def plans(self) -> tuple:
+        """Per-live-tenant template plans (host-side views)."""
+        return tuple(self.plan_for(t) for t in self.tenant_names)
+
     def plan_for(self, tenant: str) -> CompiledQueryPlan:
         if tenant not in self._by_name:
             raise KeyError(f"unknown tenant {tenant!r}; "
@@ -475,8 +637,15 @@ class SlottedTenantPlan:
     def draws(self, keys):
         return self.core.draws(keys)
 
+    def draws_spmd(self, keys, rank: int):
+        return self.core.draws_spmd(keys, rank)
+
     def evaluate(self, draws, batch, res, state):
         return self.core.evaluate(draws, batch, res, state)
+
+    def evaluate_spmd(self, draws, batch, res, state, mesh, share=None):
+        return self.core.evaluate_spmd(draws, batch, res, state, mesh,
+                                       share)
 
     def exact_answers(self, values, strata=None) -> np.ndarray:
         """Host-side exact answers in the PUBLIC layout."""
@@ -496,9 +665,11 @@ class SlottedTenantPlan:
         return {"groups": groups}
 
     def admit(self, name: str, specs) -> tuple:
-        """→ ``(new_plan, transform)``: ``transform(qstate)`` activates the
-        new tenant's slot with its row reset to the template's init state
-        (the slot may hold a retired tenant's frozen sketch). A tenant of
+        """→ ``(new_plan, transform)``: ``transform(qstate, slot_axis=0)``
+        activates the new tenant's slot with its row reset to the
+        template's init state (the slot may hold a retired tenant's frozen
+        sketch); ``slot_axis=1`` edits a mesh rank's rows, whose leaves
+        carry a leading rank axis. A tenant of
         a new signature opens a group of one slot; into a full group it
         doubles the group's slot bucket. The qstate given is left as it
         was."""
@@ -527,25 +698,30 @@ class SlottedTenantPlan:
                 core = slot_plan_core(groups, self.num_strata)
         tmpl, n = core.groups[gi]
 
-        def transform(qstate):
+        def transform(qstate, slot_axis: int = 0):
             dev = qstate[0][0].device
             row = tmpl.init_state(dev)
+            # leading (rank) axes: () locally, (1,) for a mesh rank's rows
+            lead = tuple(qstate[0][0].shape[:slot_axis])
+            idx = (slice(None),) * slot_axis + (si,)
             qstate = list(qstate)
             if gi == len(qstate):
-                mask = torch.zeros(n, dtype=torch.bool, device=dev)
-                st = _tree_map(lambda v: v.expand((n,) + v.shape).clone(),
-                               row)
+                mask = torch.zeros(lead + (n,), dtype=torch.bool, device=dev)
+                st = _tree_map(
+                    lambda v: v.expand(lead + (n,) + v.shape).clone(), row)
             else:
                 mask, st = qstate[gi]
                 if grow:
-                    mask = torch.cat([mask, mask.new_zeros(grow)])
+                    mask = torch.cat([mask, mask.new_zeros(lead + (grow,))],
+                                     dim=slot_axis)
                     st = _tree_map(lambda a, v: torch.cat(
-                        [a, v.expand((grow,) + v.shape)]), st, row)
+                        [a, v.expand(lead + (grow,) + v.shape)],
+                        dim=slot_axis), st, row)
                 else:
                     mask, st = mask.clone(), _tree_map(torch.clone, st)
                 # reset the slot's row: admission must match a fresh compile
-                _tree_map(lambda a, v: a[si].copy_(v), st, row)
-            mask[si] = True
+                _tree_map(lambda a, v: a[idx].copy_(v), st, row)
+            mask[idx] = True
             qstate[gi:gi + 1] = [(mask, st)]
             return tuple(qstate)
 
@@ -553,8 +729,8 @@ class SlottedTenantPlan:
         return SlottedTenantPlan(core, entries), transform
 
     def retire(self, name: str) -> tuple:
-        """→ ``(new_plan, transform)``: ``transform(qstate)`` flips the
-        slot's mask bit off. The row's state freezes in place (a bucket
+        """→ ``(new_plan, transform)``: ``transform(qstate, slot_axis=0)``
+        flips the slot's mask bit off. The row's state freezes in place (a bucket
         never shrinks; a later ``admit`` reuses the slot)."""
         if name not in self._by_name:
             raise KeyError(f"unknown tenant {name!r}; "
@@ -565,11 +741,11 @@ class SlottedTenantPlan:
         _, _, gi, si = self._by_name[name]
         entries = tuple(e for e in self.entries if e[0] != name)
 
-        def transform(qstate):
+        def transform(qstate, slot_axis: int = 0):
             qstate = list(qstate)
             mask, st = qstate[gi]
             mask = mask.clone()
-            mask[si] = False
+            mask[(slice(None),) * slot_axis + (si,)] = False
             qstate[gi] = (mask, st)
             return tuple(qstate)
 

@@ -59,10 +59,13 @@ def test_cli_json_report_and_refusals(tmp_path, monkeypatch):
     trace = json.loads((tmp_path / "trace.json").read_text())
     assert {"epoch_dispatch", "block_until_ready", "ingest"} <= {
         e["name"] for e in trace["traceEvents"]}
-    with pytest.raises(ValueError, match="Queue 1 item 12"):
-        TA.main(["--mesh", "2", "--device", "cpu"])
-    with pytest.raises(ValueError, match="Queue 1 item 12"):
-        TA.run_spmd_pipeline([], ticks=1)
+    # the mesh refuses what it cannot run: the adaptive strata (a scan
+    # engine state), and a multi-rank mesh outside the rank processes
+    with pytest.raises(ValueError, match="adaptive-strata"):
+        TA.main(["--mesh", "2", "--adaptive-strata", "--device", "cpu"])
+    with pytest.raises(RuntimeError, match="spawn_ranks"):
+        TA.run_spmd_pipeline(TA.stream_specs("taxi"), ticks=1, n_devices=2,
+                             device="cpu", backend="gloo")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         TA.main(["--ticks", "1"])

@@ -2,7 +2,7 @@
 ``restore_state``) on the CPU, and against the reference's format.
 
 The manager's own laws (round trip, keep-N with a crashed ``.tmp``
-ignored, the asynchronous writer, no re-mesh), both ``SpecError``s of
+ignored, the asynchronous writer, the re-mesh on load), both ``SpecError``s of
 ``restore_state``, and the format across packages: the port flattens a
 ``PipelineState`` in the order ``jax.tree_util.tree_flatten`` gives the
 reference's, so a checkpoint written by the reference restores into the
@@ -115,8 +115,23 @@ def test_roundtrip_keeps_structure_dtypes_and_bits(tmp_path):
         ckpt.restore(tmp_path, 7, {"a": torch.zeros(4)})
     with pytest.raises(ValueError, match="shape"):
         ckpt.restore(tmp_path, 7, dict(tree, c=torch.zeros(3, dtype=bool)))
-    with pytest.raises(NotImplementedError, match="item 12"):
-        ckpt.restore(tmp_path, 7, tree, shardings=tree)
+    # the re-mesh on load: rank 1 of 2 takes row 1 of a per-rank leaf
+    # (the reference's [N, ...] layout), the replicated leaves whole
+    from repro_torch.launch.mesh import DataMesh
+    from repro_torch.launch.sharding import (PER_RANK, REPLICATED,
+                                             RankShardings)
+
+    mesh = DataMesh(rank=1, size=2, device="cpu", backend="gloo")
+    rows = dict(tree, b=(torch.zeros((1, 3), dtype=torch.int32), None, ()))
+    place = {"b": (PER_RANK, None, ()), "a": [REPLICATED, REPLICATED],
+             "c": REPLICATED}
+    out, _ = ckpt.restore(tmp_path, 7, rows,
+                          shardings=RankShardings(mesh, place))
+    _bits(out["b"][0].numpy(), np.asarray([[3, 4, 5]], np.int32))
+    _bits(out["c"].numpy(), tree["c"].numpy())
+    with pytest.raises(ValueError, match="rows"):
+        ckpt.restore(tmp_path, 7, rows, shardings=RankShardings(
+            DataMesh(rank=0, size=4, device="cpu", backend="gloo"), place))
 
 
 def test_keep_n_and_tmp_ignored(tmp_path):

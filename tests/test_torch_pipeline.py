@@ -255,10 +255,13 @@ def test_port_never_imports_jax_or_the_reference():
                 "checkpoint/manager.py", "runtime/straggler.py",
                 "models/model.py", "models/layers.py",
                 "kernels/flash_attention/ops.py", "optim/train_step.py",
-                "configs/registry.py", "configs/smollm_135m.py"):
+                "configs/registry.py", "configs/smollm_135m.py",
+                "api/spmd.py", "launch/mesh.py", "launch/sharding.py"):
         assert REPO / "src" / "repro_torch" / mod in files, mod
     files += [REPO / "chip_smoke.py", REPO / "examples" / "quickstart_torch.py",
-              REPO / "examples" / "taxi_analytics_torch.py"]
+              REPO / "examples" / "taxi_analytics_torch.py",
+              # what the mesh tests' rank processes import
+              REPO / "tests" / "torch_spmd_ranks.py"]
     tools = sorted((REPO / "tools").glob("*.py"))
     for tool in ("flash_planted_faults.py", "flash_rounding_check.py",
                  "fused_tick_phases.py", "kernel_ab.py", "fadd_chain.py",
@@ -283,7 +286,8 @@ def test_port_never_imports_jax_or_the_reference():
             "repro_torch.models.model, repro_torch.optim.train_step, "
             "repro_torch.kernels.flash_attention.ops, repro_torch.serve, "
             "repro_torch.checkpoint, repro_torch.runtime.straggler, "
-            "repro_torch.configs.approxiot_paper\n"
+            "repro_torch.configs.approxiot_paper, repro_torch.api.spmd, "
+            "repro_torch.launch.mesh, repro_torch.launch.sharding\n"
             "from repro_torch.configs import registry\n"
             "[registry.get_config(n) for n in registry.ARCH_NAMES]\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "

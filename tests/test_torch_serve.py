@@ -177,8 +177,11 @@ def test_main_prints_the_reference_lines(capsys, tmp_path):
     assert (tmp_path / "m.txt").read_text().startswith("#")
 
 
-@pytest.mark.parametrize("flag,item", [(["--mesh", "2"], "item 12")])
+@pytest.mark.parametrize("flag,item", [
+    (["--mesh", "2", "--mesh-backend", "nccl"], "one rank per CUDA card")])
 def test_unported_modes_raise(flag, item):
+    """A mode this machine cannot run raises before anything starts: an
+    NCCL mesh on CPU ranks (NCCL runs one rank a card)."""
     with pytest.raises(ValueError, match=item):
         TSV.main(SMALL + ["--device", "cpu"] + flag)
 
