@@ -73,7 +73,18 @@ Drives ``src/repro_torch`` only (nothing of JAX or of the JAX package):
    an f32 copy (B 1, S 512) card against CPU; the serve CLI
    (``repro_torch.launch.serve``) at the reference's defaults but
    ``SERVE_REQUESTS`` requests (16, not 64), and one
-   f32 batch whose greedy tokens must be the CPU's. Then the serve
+   f32 batch whose greedy tokens must be the CPU's. Then the zoo's
+   other families (``run_families``): whisper-medium, zamba2-1.2b,
+   qwen2-moe-a2.7b and rwkv6-7b in bf16 at full width (``FAMILY_RUNS``),
+   each prefill's flash launches counted (one a causal self-attention),
+   pallas against xla, ms per forward and the busy share; an f32 copy
+   of each (two layers, two hybrid segments) card pallas, card xla and
+   CPU, the reference's law (teacher-forced decode ≡ forward) on the
+   card, ``serve_batch`` and one train step card against CPU; one train
+   step of SmolLM-135M and InternVL2-1B (two layers, f32) card against
+   CPU; the serve CLI for whisper-medium and zamba2-1.2b at full size;
+   the train CLI (``repro_torch.launch.train``, SmolLM-135M, 20 steps,
+   B 8, S 256) and the busy share of one of its steps. Then the serve
    plane: the testbed with the two tenants behind
    ``repro_torch.serve.StreamingExecutor`` (epochs of ``TICKS`` ticks,
    width 11008, queues of ``EX_QUEUE``), fed by 4 shards, each a
@@ -190,6 +201,19 @@ SERVE_REQUESTS = 16
 PREFILL_BF16_AGREE = 0.8
 PREFILL_BF16_REL = 0.1
 PREFILL_F32_REL = 1e-3
+# A moe model routes some tokens to other experts on the pallas and xla
+# paths (top-4 gates a bf16 rounding apart), and such a token's logits
+# move by O(1), so the max abs limit cannot hold: qwen2-moe-a2.7b's sound
+# run reads argmax agreement 0.9385, 0.9423 of the tokens routed alike in
+# both layers, max abs 3.14 against a largest logit of 6.375, and 0.0461
+# of the tokens beyond 0.1 x max |logit|. For moe the limits are argmax
+# agreement and the share routed alike ≥ PREFILL_BF16_AGREE, and at most
+# PREFILL_MOE_OVER of the tokens beyond PREFILL_BF16_REL x max |logit|.
+# The planted causal-mask fault reads 0.7474, 0.6992 and 0.3019 there
+# (tools/flash_planted_faults.py, NVIDIA H100 80GB HBM3, 700.00 W); the
+# kv-head fault changes nothing for a model with as many kv heads as
+# query heads.
+PREFILL_MOE_OVER = 0.15
 # H100 SXM data sheet: f32 outside the tensor cores (the sheet gives no
 # rate for the int32 compares the kernels mostly do).
 ALU_OPS_PER_S = 67e12
@@ -238,6 +262,13 @@ def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
 
 
 def max_abs(a: torch.Tensor, b: torch.Tensor) -> float:
+    """max |a − b| in f64; on the card when both are there (in chunks of
+    2^26 elements), else on the CPU."""
+    if a.device == b.device and a.device.type == "cuda":
+        a, b = a.detach().reshape(-1), b.detach().reshape(-1)
+        n = 1 << 26
+        return max((float((x.double() - y.double()).abs().max())
+                    for x, y in zip(a.split(n), b.split(n))), default=0.0)
     a, b = a.detach().cpu().double(), b.detach().cpu().double()
     return float((a - b).abs().max()) if a.numel() else 0.0
 
@@ -312,7 +343,7 @@ def traced(fn, *calls: int):
             for lo, hi in zip(pads, pads[1:])], walls
 
 
-TRACES = 5   # traces per device time; the time is their median
+TRACES = 3   # traces per device time; the time is their median
 # kernel → (per-trace ms, traces rejected, CUDA-event ms or None) of each
 # timing
 SPREAD: dict[str, list] = {}
@@ -1323,6 +1354,529 @@ def run_serve(dev, LAUNCHES, reset_launches) -> dict:
             "exact": exact}
 
 
+# ------------------------------------------------------ the zoo's families --
+# The moe, encdec, hybrid and ssm families' prefill in bf16 at full width:
+# (batch, tokens, encoder frames, layers or None for the published
+# depth). whisper-medium: its encoder's 30 s window (1,500 frames) and 384
+# decoder tokens (a multiple of 128 at or under its 448-token context).
+# qwen2-moe-a2.7b and rwkv6-7b are cut to 2 layers: their weights are drawn
+# on the host, ≈ 0.57 B and 0.22 B parameters a layer at ≈ 10 ns each, and
+# the run has 1200 s in all (PERF.md §4).
+FAMILY_RUNS = {
+    "whisper-medium": (8, 384, 1500, None),
+    "zamba2-1.2b": (8, 2048, 0, None),
+    "qwen2-moe-a2.7b": (4, 2048, 0, 2),
+    "rwkv6-7b": (4, 2048, 0, 2),
+}
+# The f32 copy: the bf16 model's first two layers (two of each stack for
+# encdec; the hybrid's first two segments, attn_every + 1 layers, the
+# second a short one), cast to f32. Its prefill is B 1, S 256 (encdec:
+# 1,500 frames), card pallas, card xla and CPU within PREFILL_F32_REL of
+# the largest logit, as SmolLM-135M's. The reference's law, teacher-forced
+# decode ≡ forward, at B 2, S 128 within LAW_TOL (tests/test_models.py's;
+# encdec through build_encdec_cache). The law holds only where no pair is
+# dropped: the reference's test runs moe at capacity factor 8, enough for
+# its reduced 8 experts; qwen2-moe's 60 experts, top 4, need 2·E/k = 30,
+# or decode at B 2 has capacity 1 and drops pairs.
+F32_SEQ = 256
+LAW_BATCH, LAW_SEQ, LAW_TOL = 2, 128, 2e-2
+# One train step, B 1, S 128, f32, card against CPU: the loss and
+# grad_norm within TRAIN_RTOL (f32 sums in other orders through two
+# layers and a vocabulary-wide softmax); each leaf's gradient (from m,
+# 0.1·clip_scale·g at the first step) and m within TRAIN_RTOL of each
+# entry plus LEAF_RTOL times the leaf's largest entry, so a leaf whose
+# gradient is off by a factor fails; v, (1 − b2)·(clip_scale·g)², within
+# twice that (squaring doubles a relative error: a gradient at its limit,
+# |dg| ≤ r·(|g| + max|g|), moves g² by at most 2r·(g² + max g²)).
+# LEAF_RTOL is TRAIN_RTOL, but CUMSUM_LEAF_RTOL for the hybrid and ssm
+# families: the chunked log-decay cumsums of mamba2 and rwkv6 round
+# differently on the card (a parallel scan) and the CPU (in order), and
+# a_log's gradient, a sum over B·S of terms through the exp of their
+# differences, cancels down to 1e-4 of its leaf's scale (zamba2-1.2b
+# read 0.97 of a TRAIN_RTOL limit; every other family under 0.04).
+# Every updated parameter within
+# TRAIN_RTOL · (1 + |p|) — but where its gradient entry is under
+# TINY_GRAD, within 2·lr more: AdamW's first step moves a parameter by
+# lr · g / (|g| + eps), whose sign there turns on the entry's rounding.
+TRAIN_SEQ, TRAIN_RTOL, TINY_GRAD = 128, 1e-4, 1e-6
+CUMSUM_LEAF_RTOL = 1e-3
+# serve_batch at the f32 copy's size, card against CPU: 8 prompts of 8
+# tokens, 4 decoded.
+SERVE_F32, SERVE_F32_DECODE = (8, 8), 4
+TRAIN_ARCHS = ("smollm-135m", "internvl2-1b")   # the other two families
+TRAIN_CLI = ["--arch", "smollm-135m", "--steps", "20", "--batch", "8",
+             "--seq", "256"]
+
+
+def flash_per_forward(cfg) -> int:
+    """flash_attention launches in one forward: each causal
+    self-attention (every dense/moe layer, every encdec decoder layer,
+    once per hybrid segment; none in ssm)."""
+    from repro_torch.models import model as M
+
+    if cfg.family == "hybrid":
+        return len(M._segments(cfg))
+    return 0 if cfg.family == "ssm" else cfg.num_layers
+
+
+def family_batch(cfg, b, s, frames, g, dev, train=False):
+    toks = torch.randint(0, cfg.vocab_size, (b, s), generator=g)
+    batch = {"tokens": toks}
+    if cfg.family == "encdec":
+        batch["frames"] = torch.randn((b, frames, cfg.d_model),
+                                      generator=g).to(cfg.param_dtype)
+    if cfg.family == "vlm":
+        batch["patches"] = torch.randn((b, cfg.num_patches, cfg.d_model),
+                                       generator=g).to(cfg.param_dtype)
+    if train:
+        batch["labels"] = torch.randint(0, cfg.vocab_size, (b, s),
+                                        generator=g)
+        batch["weight"] = torch.rand((b,), generator=g) + 0.5
+    return {k: v.to(dev) for k, v in batch.items()}
+
+
+def f32_copy(cfg, params):
+    """``(cfg32, card, cpu)``: the bf16 model's first two layers (see
+    F32_SEQ) in f32, on the card and on the CPU."""
+    import copy
+    import dataclasses
+
+    from repro_torch.models.layers import Params
+
+    n = cfg.attn_every + 1 if cfg.family == "hybrid" else 2
+    cfg32 = dataclasses.replace(cfg, num_layers=n,
+                                encoder_layers=min(cfg.encoder_layers, 2),
+                                param_dtype=torch.float32)
+    tree = {k: params[k] for k in params.keys()}
+    tree["layers"] = list(params["layers"][:n])
+    if "enc_layers" in params:
+        tree["enc_layers"] = list(params["enc_layers"][:2])
+    card = copy.deepcopy(Params(tree)).to(torch.float32)
+    return cfg32, card, copy.deepcopy(card).cpu()
+
+
+def check_f32_leaves(what, params) -> None:
+    from repro_torch.models import model as M
+
+    for name, t in params.named_parameters():
+        want = (torch.float32 if name.rsplit(".", 1)[-1] in M.F32_LEAVES
+                else None)
+        if want is not None and t.dtype != want:
+            fail(f"{what}: {name} is {t.dtype}, the reference keeps it f32")
+
+
+def train_close(what, family, card, cpu, card_met, cpu_met) -> dict:
+    """Hold a card train step to the CPU's (see TRAIN_RTOL): ``card`` and
+    ``cpu`` are ``(params, m, v)`` after the step."""
+    leaf = CUMSUM_LEAF_RTOL if family in ("hybrid", "ssm") else TRAIN_RTOL
+    lr = float(cpu_met["lr"])
+    errs = {k: abs(float(card_met[k]) - float(cpu_met[k]))
+            / max(abs(float(cpu_met[k])), 1e-30) for k in ("loss",
+                                                           "grad_norm")}
+    if max(errs.values()) > TRAIN_RTOL:
+        fail(f"{what} train step: card vs CPU relative {errs} > "
+             f"{TRAIN_RTOL}")
+    # the gradients from m = (1 − b1)·g·clip_scale, each side's own scale
+    def m_per_g(met):
+        return 0.1 * min(1.0, 1.0 / max(float(met["grad_norm"]), 1e-9))
+
+    card_mg, cpu_mg = m_per_g(card_met), m_per_g(cpu_met)
+    # each kind's largest share of its limit, over its leaves, and where
+    share = {k: (0.0, "") for k in ("grad", "m", "v", "params")}
+    slacked = 0
+    for (name, a), b, cm, m, cv, v in zip(
+            card[0].named_parameters(), cpu[0].parameters(),
+            card[1].parameters(), cpu[1].parameters(),
+            card[2].parameters(), cpu[2].parameters(), strict=True):
+        # compared on the card: the CPU's leaves are copied there
+        a, b = a.detach(), b.detach().to(a.device)
+        m, v = m.to(a.device), v.to(a.device)
+        g = m / cpu_mg
+        tiny = g.abs() < TINY_GRAD
+        for kind, x, y, room in (
+                ("grad", cm / card_mg, g, leaf_room(g, leaf)),
+                ("m", cm, m, leaf_room(m, leaf)),
+                ("v", cv, v, 2 * leaf_room(v, leaf)),
+                ("params", a, b, TRAIN_RTOL * (1 + b.abs())
+                 + torch.where(tiny, 2 * lr, 0.0))):
+            r = float(((x - y).abs() / room).max())
+            if r > share[kind][0]:
+                share[kind] = (r, name)
+            del room
+        slacked += int(tiny.sum())
+        del a, b, m, v, g, tiny
+    over = {k: x for k, x in share.items() if x[0] > 1}
+    if over:
+        fail(f"{what} train step: card vs CPU beyond the limit (share of "
+             f"it, leaf): {over}")
+    errs.update({f"{k}_share": x for k, x in share.items()},
+                tiny_grad_entries=slacked)
+    return errs
+
+
+def leaf_room(want, leaf_rtol):
+    """The limit on a leaf: TRAIN_RTOL of each entry plus ``leaf_rtol``
+    times the leaf's largest entry, the leaf's own scale, so a leaf off
+    by a factor fails however small its entries are."""
+    return (TRAIN_RTOL * want.abs()
+            + leaf_rtol * want.abs().max()).clamp_min(1e-37)
+
+
+def train_pair(cfg, card_params, cpu_params, batch, dev):
+    """One make_train_step on the card and on the CPU from the same
+    weights (each updated in place); returns what train_close reads and
+    the card step's and the CPU step's wall ms."""
+    from repro_torch.optim import adamw, train_step as T
+
+    opt_cfg = adamw.AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=10)
+    step = T.make_train_step(cfg, opt_cfg)
+    copt = adamw.init(card_params, dev)
+    opt = adamw.init(cpu_params, "cpu")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, copt, cmet = step(card_params, copt, batch)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    _, opt, met = step(cpu_params, opt,
+                       {k: v.cpu() for k, v in batch.items()})
+    ms = (ms, (time.perf_counter() - t0) * 1e3)
+    return ((card_params, copt["m"], copt["v"]),
+            (cpu_params, opt["m"], opt["v"]), cmet, met, ms)
+
+
+def routed(fn):
+    """``(fn(), choices)``: ``choices`` holds the experts each moe layer
+    routed every token to in that call, ``[T, k]`` a layer, recorded by a
+    wrapper around ``models.moe.route`` for the length of the call."""
+    from repro_torch.models import moe
+
+    seen, real = [], moe.route
+
+    def spy(*args, **kw):
+        out = real(*args, **kw)
+        seen.append(out[1])
+        return out
+
+    moe.route = spy
+    try:
+        return fn(), seen
+    finally:
+        moe.route = real
+
+
+def family_prefill(arch, dev, LAUNCHES, reset_launches, card):
+    """The family's bf16 prefill at full width (FAMILY_RUNS): its flash
+    launches in one pallas forward counted, then pallas held against
+    xla to SmolLM-135M's limits, but for moe (PREFILL_MOE_OVER).
+    Returns ``(cfg, params, batch, stats)``."""
+    import dataclasses
+
+    from repro_torch.configs import registry
+    from repro_torch.models import model as M
+    from repro_torch.optim import train_step as T
+
+    b, s, frames, depth = FAMILY_RUNS[arch]
+    cfg = dataclasses.replace(registry.get_config(arch),
+                              attention_impl="pallas",
+                              **({"num_layers": depth} if depth else {}))
+    xcfg = dataclasses.replace(cfg, attention_impl="xla")
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    stats = {"init_s": time.perf_counter() - t0}
+    check_f32_leaves(arch, params)
+    g = torch.Generator().manual_seed(21)
+    batch = family_batch(cfg, b, s, frames, g, dev)
+    pallas, xla = T.make_prefill_step(cfg), T.make_prefill_step(xcfg)
+    pallas(params, batch)                          # warm-up
+    torch.cuda.synchronize()
+    reset_launches()
+    logits, p_route = routed(lambda: pallas(params, batch))
+    torch.cuda.synchronize()
+    n_flash = LAUNCHES["flash_attention"]
+    if n_flash != flash_per_forward(cfg):
+        fail(f"{arch}: flash_attention launched {n_flash} times in one "
+             f"prefill, expected {flash_per_forward(cfg)}")
+    if (tuple(logits.shape) != (b, s, cfg.vocab_size)
+            or logits.dtype != torch.bfloat16
+            or not bool(torch.isfinite(logits).all())):
+        fail(f"{arch}: prefill logits {tuple(logits.shape)} "
+             f"{logits.dtype}, finite {bool(torch.isfinite(logits).all())}")
+    xlogits, x_route = routed(lambda: xla(params, batch))
+    alike = torch.ones((b, s), dtype=torch.bool, device=dev)
+    for pr, xr in zip(p_route, x_route):
+        same = (pr.sort(-1).values == xr.sort(-1).values).all(-1)
+        alike &= same.reshape(b, s)
+    # per token: max |Δ logit|, row by row on the card
+    tok_diff = torch.stack([(lp.float() - lx.float()).abs().amax(-1)
+                            for lp, lx in zip(logits, xlogits)])
+    scale = float(xlogits.abs().max())
+    agree = float((logits.argmax(-1) == xlogits.argmax(-1)).float().mean())
+    del xlogits
+    share = float(alike.float().mean())
+    diff = float(tok_diff.max())
+    over = float((tok_diff > PREFILL_BF16_REL * scale).float().mean())
+    if cfg.family == "moe":
+        bad = (agree < PREFILL_BF16_AGREE or share < PREFILL_BF16_AGREE
+               or over > PREFILL_MOE_OVER)
+    else:
+        bad = agree < PREFILL_BF16_AGREE or diff > PREFILL_BF16_REL * scale
+    if bad:
+        fail(f"{arch} bf16 prefill: pallas and xla disagree (argmax "
+             f"agreement {agree:.4f}, tokens routed alike {share:.4f}, "
+             f"tokens beyond {PREFILL_BF16_REL} x max |logit| {over:.4f}, "
+             f"max abs {diff:.4f}, max |logit| {scale:.3f})")
+    stats.update(launches=n_flash, diff=diff, agree=agree,
+                 routed_alike=share, scale=scale, over=over)
+    print(f"{arch} bf16 prefill pallas vs xla on {card}: argmax agreement "
+          f"{agree:.4f}, tokens routed alike {share:.4f}, tokens beyond "
+          f"{PREFILL_BF16_REL} x max |logit| {over:.4f}, max abs {diff:.4f}"
+          f", max |logit| {scale:.3f}; {n_flash} flash_attention launches")
+    return cfg, params, batch, stats
+
+
+def family_f32(cfg, params, frames, dev, out) -> tuple:
+    """The f32 copy (see F32_SEQ): card pallas, card xla and CPU; the
+    reference's law on the card; ``serve_batch`` card against CPU.
+    Returns ``(cfg32, card, cpu)`` for the train step."""
+    import dataclasses
+
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+    from repro_torch.optim import train_step as T
+
+    arch = cfg.name
+    g = torch.Generator().manual_seed(23)
+    cfg32, card32, cpu32 = f32_copy(cfg, params)
+    b32 = family_batch(cfg32, 1, F32_SEQ, frames, g, "cpu")
+    cpu = T.make_prefill_step(cfg32)(cpu32, b32)
+    cb = {k: v.to(dev) for k, v in b32.items()}
+    on_card = T.make_prefill_step(cfg32)(card32, cb)
+    on_cardx = T.make_prefill_step(
+        dataclasses.replace(cfg32, attention_impl="xla"))(card32, cb)
+    tol = PREFILL_F32_REL * float(cpu.abs().max())
+    errs = {"card pallas vs cpu": max_abs(on_card, cpu),
+            "card xla vs cpu": max_abs(on_cardx, cpu),
+            "card pallas vs card xla": max_abs(on_card, on_cardx)}
+    if max(errs.values()) > tol:
+        fail(f"{arch} f32 prefill: card and CPU disagree beyond {tol:.3e}: "
+             f"{errs}")
+    del cpu, on_card, on_cardx
+    out["f32"] = errs
+    out["s_f32"] = lap(out)
+
+    # The law, with no pair dropped on either side: at decode B tokens
+    # must fit an expert whatever they choose (capacity ≥ B), and in the
+    # forward B·S must.
+    lcfg = cfg32
+    if cfg.family == "moe":
+        cf = 2.0 * cfg.num_experts / cfg.num_experts_per_tok
+        lcfg = dataclasses.replace(cfg32, capacity_factor=cf)
+    lb = family_batch(lcfg, LAW_BATCH, LAW_SEQ, frames, g, dev)
+    with torch.inference_mode():
+        full = M.forward(lcfg, card32, lb)[0]
+        if cfg.family == "encdec":
+            cache = M.build_encdec_cache(lcfg, card32, lb["frames"],
+                                         LAW_SEQ, device=dev)
+        else:
+            cache = M.init_cache(lcfg, LAW_BATCH, LAW_SEQ, device=dev)
+        steps = []
+        for t in range(LAW_SEQ):
+            lg, cache = M.decode_step(lcfg, card32, cache,
+                                      lb["tokens"][:, t:t + 1], t)
+            steps.append(lg)
+        dec = torch.stack(steps, 1)
+    out["law"] = max_abs(dec, full)
+    if not torch.allclose(dec, full, rtol=LAW_TOL, atol=LAW_TOL):
+        fail(f"{arch}: teacher-forced decode differs from forward (max abs "
+             f"{out['law']:.3e}) beyond {LAW_TOL}")
+    del full, cache, steps, dec
+    out["s_law"] = lap(out)
+
+    toks = torch.randint(0, cfg.vocab_size, SERVE_F32, generator=g)
+    want_t = serve.serve_batch(cfg32, cpu32, toks, SERVE_F32_DECODE)
+    got_t = serve.serve_batch(cfg32, card32, toks.to(dev), SERVE_F32_DECODE)
+    if not torch.equal(got_t.cpu(), want_t):
+        fail(f"{arch} serve_batch f32: card tokens {got_t.tolist()} differ "
+             f"from the CPU's {want_t.tolist()}")
+    out["s_serve"] = lap(out)
+    return cfg32, card32, cpu32
+
+
+def lap(out) -> float:
+    """Seconds since the last lap (``out["_t"]``)."""
+    torch.cuda.synchronize()
+    now = time.perf_counter()
+    dt, out["_t"] = now - out.get("_t", now), now
+    return dt
+
+
+def run_family(arch, dev, LAUNCHES, reset_launches, card) -> dict:
+    """Phase 3, one family of the zoo: ``family_prefill`` (bf16, full
+    width) with its times and busy share, ``family_f32`` and one train
+    step of the f32 copy, card against CPU."""
+    import dataclasses
+
+    from repro_torch.optim import train_step as T
+
+    out = {}
+    lap(out)
+    cfg, params, batch, stats = family_prefill(arch, dev, LAUNCHES,
+                                               reset_launches, card)
+    out.update(stats)
+    b, s, frames, _ = FAMILY_RUNS[arch]
+    pallas = T.make_prefill_step(cfg)
+    xla = T.make_prefill_step(dataclasses.replace(cfg,
+                                                  attention_impl="xla"))
+
+    def forward_ms(step, reps=3):
+        # both steps ran once in family_prefill
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            step(params, batch)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / reps * 1e3
+
+    out["ms_pallas"], out["ms_xla"] = forward_ms(pallas), forward_ms(xla)
+    out["busy"] = busy_share(lambda: pallas(params, batch))
+    n_tok = b * s
+    layers = (f"{cfg.encoder_layers} + {cfg.num_layers}"
+              if cfg.family == "encdec" else f"{cfg.num_layers}")
+    bs = out["busy"]
+    print(f"{arch} prefill bf16, {layers} layers, B {b} S {s}"
+          f"{f' frames {frames}' if frames else ''} on {card}: pallas "
+          f"{out['ms_pallas']:.2f} ms per forward "
+          f"({n_tok / out['ms_pallas'] * 1e3:.4g} tokens/s), xla "
+          f"{out['ms_xla']:.2f} ms ({n_tok / out['ms_xla'] * 1e3:.4g} "
+          f"tokens/s); one profiled pallas forward: device busy "
+          f"{bs['busy_ms']:.2f} of {bs['wall_ms']:.2f} ms "
+          f"({100 * bs['busy_ms'] / bs['wall_ms']:.1f}%), {bs['events']} "
+          f"device events; init {out['init_s']:.1f} s")
+    del batch
+    out["s_bf16"] = lap(out)
+    cfg32, card32, cpu32 = family_f32(cfg, params, frames, dev, out)
+    del params
+    torch.cuda.empty_cache()
+
+    # One train step, card against CPU (xla attention: no backward in
+    # the flash kernel).
+    tcfg = dataclasses.replace(cfg32, attention_impl="xla")
+    g = torch.Generator().manual_seed(24)
+    tb = family_batch(tcfg, 1, TRAIN_SEQ, TRAIN_SEQ // 2, g, dev,
+                      train=True)
+    if tcfg.family == "encdec":
+        tb["tokens"], tb["labels"] = (tb["tokens"][:, :TRAIN_SEQ // 2],
+                                      tb["labels"][:, :TRAIN_SEQ // 2])
+    card_s, cpu_s, cmet, met, step_ms = train_pair(tcfg, card32, cpu32, tb,
+                                                   dev)
+    out["train"] = train_close(arch, cfg.family, card_s, cpu_s, cmet, met)
+    out["s_train"] = lap(out)
+    print(f"{arch} f32 copy ({cfg32.num_layers} layers) B 1 S {F32_SEQ}: "
+          f"max abs {out['f32']} (tolerance {PREFILL_F32_REL} x max "
+          f"|logit|); law max abs {out['law']:.3e} (tolerance {LAW_TOL}); "
+          f"serve_batch {SERVE_F32} decode {SERVE_F32_DECODE} tokens the "
+          f"CPU's; one train step (B 1 S {TRAIN_SEQ}, {step_ms[0]:.1f} ms on "
+          f"{card}, {step_ms[1]:.0f} ms on the CPU): loss {float(met['loss']):.4f}, card vs CPU "
+          f"{out['train']}; seconds: bf16 {out['s_bf16']:.1f}, f32 "
+          f"{out['s_f32']:.1f}, law {out['s_law']:.1f}, serve "
+          f"{out['s_serve']:.1f}, train {out['s_train']:.1f}")
+    del card32, cpu32, card_s, cpu_s
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_families(dev, LAUNCHES, reset_launches, card) -> dict:
+    """Phase 3, the zoo's moe, encdec, hybrid and ssm families
+    (``run_family``), one train step of the dense and vlm families at
+    full width in f32 (two layers), card against CPU; then the serve CLI
+    for whisper-medium and zamba2-1.2b at full size, and the train CLI
+    (SmolLM-135M, TRAIN_CLI) with the busy share of one of its steps."""
+    import contextlib
+    import copy
+    import dataclasses
+    import io
+    import re
+    import tempfile
+
+    from repro_torch.configs import registry
+    from repro_torch.data.stream import TokenStream
+    from repro_torch.launch import serve, train
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw, train_step as T
+
+    t_all = time.perf_counter()
+    out = {arch: run_family(arch, dev, LAUNCHES, reset_launches, card)
+           for arch in FAMILY_RUNS}
+    g = torch.Generator().manual_seed(22)
+    for arch in TRAIN_ARCHS:
+        cfg = dataclasses.replace(registry.get_config(arch), num_layers=2,
+                                  param_dtype=torch.float32)
+        cpu_params = M.init_params(cfg, seed=0, device="cpu")
+        card_params = copy.deepcopy(cpu_params).to(dev)
+        tb = family_batch(cfg, 1, TRAIN_SEQ, 0, g, dev, train=True)
+        card_s, cpu_s, cmet, met, step_ms = train_pair(
+            cfg, card_params, cpu_params, tb, dev)
+        terr = train_close(arch, cfg.family, card_s, cpu_s, cmet, met)
+        print(f"{arch} f32 (2 layers): one train step (B 1 S {TRAIN_SEQ}, "
+              f"{step_ms[0]:.1f} ms on {card}, {step_ms[1]:.0f} ms on the "
+              f"CPU): loss {float(met['loss']):.4f}"
+              f", card vs CPU {terr}")
+        out[arch] = {"train": terr}
+        del card_params, cpu_params, card_s, cpu_s
+    torch.cuda.empty_cache()
+    print(f"the zoo's families on {card}: "
+          f"{time.perf_counter() - t_all:.1f} s")
+
+    for arch in ("whisper-medium", "zamba2-1.2b"):
+        t0 = time.perf_counter()
+        mean, _ = serve.main(["--arch", arch, "--requests",
+                              str(SERVE_REQUESTS)])
+        print(f"serve CLI --arch {arch} on {card}: "
+              f"{time.perf_counter() - t0:.2f} s")
+        if not np.isfinite(mean):
+            fail(f"serve CLI --arch {arch}: mean latency {mean}")
+        torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as ck:
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            losses = train.main(TRAIN_CLI + ["--ckpt-dir", ck])
+        secs = time.perf_counter() - t0
+        text = buf.getvalue()
+        print(text, end="")
+        saved = sorted(p.name for p in Path(ck).iterdir())
+    rate = re.search(r"\(([\d.]+) steps/s\)", text)
+    if (len(losses) != 20 or not np.isfinite(losses).all() or rate is None
+            or saved != ["step_000000019"]):
+        fail(f"train CLI: {len(losses)} losses, checkpoints {saved}")
+    print(f"train CLI {' '.join(TRAIN_CLI)} on {card}: {rate.group(1)} "
+          f"steps/s, loss {losses[0]:.4f} -> {losses[-1]:.4f}, "
+          f"{secs:.1f} s with init and checkpoint")
+    # Where one of its steps' time goes.
+    cfg = registry.get_config("smollm-135m")
+    params = M.init_params(cfg, seed=0, device=dev)
+    opt = adamw.init(params, dev)
+    step = T.make_train_step(cfg, adamw.AdamWConfig(total_steps=20))
+    ex = TokenStream(cfg.vocab_size, 256, cfg.num_strata).examples(8)
+    batch = {"tokens": torch.as_tensor(ex["tokens"], device=dev).long(),
+             "labels": torch.as_tensor(ex["labels"], device=dev).long(),
+             "weight": torch.ones(8, device=dev)}
+    step(params, opt, batch)
+    bs = busy_share(lambda: step(params, opt, batch))
+    print(f"SmolLM-135M train step (B 8, S 256, bf16) on {card}, profiled: "
+          f"device busy {bs['busy_ms']:.2f} of {bs['wall_ms']:.2f} ms "
+          f"({100 * bs['busy_ms'] / bs['wall_ms']:.1f}%), {bs['events']} "
+          f"device events")
+    out["train_cli"] = {"steps_s": float(rate.group(1)),
+                        "loss": (losses[0], losses[-1])}
+    del params, opt
+    torch.cuda.empty_cache()
+    return out
+
+
 # ----------------------------------------------------------- serve plane --
 # The executor in front of the testbed with tenants: 4 shards, each a
 # source of the four Gaussian sub-streams at EX_RATE items a tick each, so
@@ -2198,6 +2752,11 @@ def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a "
              "CUDA device")
+    t_script = time.perf_counter()
+
+    def phase_done(what):
+        print(f"script clock: {what} done at "
+              f"{time.perf_counter() - t_script:.1f} s")
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     import repro_torch as P
     from repro_torch.data import stream as S
@@ -2248,6 +2807,8 @@ def main() -> None:
     err["flash_attention"] = check_flash(dev)
     print(f"max abs differences vs plain: {err}")
     check_neyman_masks(dev, S)
+
+    phase_done("build and kernel checks")
 
     # 3. The main path on the card, then on the CPU.
     spec = testbed_spec(P)
@@ -2358,19 +2919,28 @@ def main() -> None:
     # Poisson mix.
     from repro_torch.launch import analytics as A
 
+    phase_done("main path, tenants and srs")
     driver = check_driver(A, dev, LAUNCHES, reset_launches)
+    phase_done("analytics driver")
 
     # The model zoo's serving half: SmolLM-135M's prefill through the
     # flash kernel, then the serve CLI.
     prefill = run_prefill(dev, LAUNCHES, reset_launches)
+    phase_done("SmolLM-135M prefill")
     served = run_serve(dev, LAUNCHES, reset_launches)
+    phase_done("SmolLM-135M serve")
+    # The zoo's other families and training.
+    run_families(dev, LAUNCHES, reset_launches, card)
+    phase_done("families and training")
     # The serve plane: the testbed with tenants behind the streaming
     # executor.
     run_serve_plane(P, S, dev, qspec, LAUNCHES, reset_launches,
                     per_window)
+    phase_done("serve plane")
     # The mesh data plane: NCCL and gloo ranks on the card, against gloo
     # ranks on the CPU.
     run_mesh_plane(P, S, A)
+    phase_done("mesh plane")
 
     # 4. Times, at the main path's shapes: device time from the profiler
     # (what ``ms``, ``plain_ms`` and ``library_ms`` report), and beside it
@@ -2711,6 +3281,8 @@ def main() -> None:
               f"({DRIVER_TICKS} ticks, wall {rep_['wall_s'] * 1e3:.1f} ms, "
               f"level time {[round(x * 1e3, 2) for x in rep_['level_time_s']]}"
               f" ms, {rep_['dispatches']} dispatches)")
+
+    phase_done("kernel times")
 
     # 5. Result lines.
     # launches: the tenant path's for the five kernels on it and

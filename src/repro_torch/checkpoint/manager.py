@@ -8,7 +8,8 @@ step:
         manifest.json         step, treedef, num_leaves, meta, leaves
         arr_00000.npy ...     one file per leaf, in flatten order
 
-Leaves are saved as full host arrays. The flatten order is the one
+Leaves are saved as full host arrays (a bf16 tensor as the f32 array of
+its values, which ``restore`` casts back). The flatten order is the one
 ``jax.tree_util.tree_flatten`` gives the reference's pytrees: NamedTuple
 fields in declaration order, tuples and lists in order, dicts by sorted
 key, ``()`` and ``None`` no leaf, every tensor or array one leaf. The
@@ -85,8 +86,22 @@ def _describe(tree) -> str:
 
 def _host(leaf) -> np.ndarray:
     if torch.is_tensor(leaf):
-        return leaf.detach().cpu().numpy()
+        leaf = leaf.detach().cpu()
+        if leaf.dtype == torch.bfloat16:   # numpy has no bf16: exact in f32
+            leaf = leaf.to(torch.float32)
+        return leaf.numpy()
     return np.asarray(leaf)
+
+
+def _load(path: pathlib.Path) -> np.ndarray:
+    """One leaf file. A bf16 leaf the reference wrote (ml_dtypes'
+    ``bfloat16``, 2-byte records to a numpy without it) comes back as
+    the f32 array of the same values."""
+    arr = np.load(path)
+    if arr.dtype.kind == "V" and arr.dtype.itemsize == 2:
+        bits = arr.view(np.uint16).astype(np.uint32) << 16
+        arr = bits.view(np.float32)
+    return arr
 
 
 def _unflatten(template, leaves):
@@ -192,7 +207,7 @@ def restore(root: str | pathlib.Path, step: int, target_tree, *,
                 for p in _flatten_like(shardings.placements, target_tree)]
     arrays = []
     for i, (tmpl, row) in enumerate(zip(leaves, rows)):
-        arr = np.load(path / f"arr_{i:05d}.npy")
+        arr = _load(path / f"arr_{i:05d}.npy")
         if row is not None:
             rank, size = row
             if arr.shape[:1] != (size,):

@@ -13,12 +13,16 @@ quantile, windowed-quantile or heavy-hitter state (told apart by its
 field names) or ``()`` for a stateless query.
 
 The model zoo's weights cross the same way: ``params_from_numpy`` takes
-the reference's parameter tree (nested dicts of numpy arrays, the layers
-stacked on axis 0) and builds the port's ``Params`` module with one entry
-per layer; ``params_to_numpy`` stacks them back. ``cache_from_numpy`` and
-``cache_to_numpy`` carry ``init_cache``'s dict. bf16 arrays (numpy's
-``bfloat16`` from the reference) come in bit for bit and go out as f32,
-which holds every bf16 value exactly.
+the reference's parameter tree (nested dicts of numpy arrays, the
+decoder's and the encoder's layers stacked on axis 0) and builds the
+port's ``Params`` module with one entry per layer; ``params_to_numpy``
+stacks them back. ``cache_from_numpy`` and ``cache_to_numpy`` carry
+``init_cache``'s dict of every family, ``opt_state_from_numpy`` and
+``opt_state_to_numpy`` the AdamW state. Every leaf takes the
+reference's dtype: the model's, but f32 for the leaves the reference
+keeps in f32 in a bf16 model. bf16 arrays (numpy's ``bfloat16`` from
+the reference) come in bit for bit and go out as f32, which holds every
+bf16 value exactly.
 """
 from __future__ import annotations
 
@@ -30,6 +34,7 @@ import torch
 from repro_torch.api.pipeline import PipelineState
 from repro_torch.core.window import TreeState
 from repro_torch.device import resolve_device
+from repro_torch.models import model as M
 from repro_torch.models.layers import Params
 from repro_torch.obs.telemetry import EpochTelemetry
 from repro_torch.query.sketches import (HeavyHitterSketch, QuantileSketch,
@@ -143,22 +148,41 @@ def _host_weight(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
+_STACKED = ("layers", "enc_layers")   # stacked on axis 0 in the reference
+
+
+def _module_from(tree: Mapping, dtype_of, dev) -> Params:
+    """A reference tree of numpy arrays → a ``Params`` module on ``dev``,
+    each leaf in ``dtype_of(its name)``; a ``_STACKED`` subtree becomes
+    a list of per-layer modules."""
+    def conv(node, name, index=None):
+        if isinstance(node, Mapping):
+            return {k: conv(v, k, index) for k, v in node.items()}
+        a = node if index is None else np.asarray(node)[index]
+        return _weight(a, dtype_of(name), dev)
+
+    def depth(node):
+        return depth(next(iter(node.values()))) if isinstance(
+            node, Mapping) else np.shape(node)[0]
+
+    return Params({k: [conv(v, k, i) for i in range(depth(v))]
+                   if k in _STACKED else conv(v, k)
+                   for k, v in tree.items()})
+
+
+def _param_dtype(cfg):
+    return lambda name: (torch.float32 if name in M.F32_LEAVES
+                         else cfg.param_dtype)
+
+
 def params_from_numpy(cfg, tree: Mapping, device="cuda") -> Params:
     """The reference's parameter tree → the port's ``Params`` on
-    ``device``, every weight in ``cfg.param_dtype``; ``tree["layers"]``
-    (stacked on axis 0) becomes a list of per-layer modules."""
-    dev = resolve_device(device)
-    dt = cfg.param_dtype
-
-    def conv(node, index=None):
-        if isinstance(node, Mapping):
-            return {k: conv(v, index) for k, v in node.items()}
-        return _weight(node if index is None else np.asarray(node)[index],
-                       dt, dev)
-
-    out = {k: conv(v) for k, v in tree.items() if k != "layers"}
-    out["layers"] = [conv(tree["layers"], i) for i in range(cfg.num_layers)]
-    return Params(out)
+    ``device``, every leaf in the reference's dtype: ``cfg.param_dtype``
+    but for the leaves the reference keeps in f32 (``model.F32_LEAVES``).
+    ``tree["layers"]`` and ``tree["enc_layers"]`` (stacked on axis 0)
+    become lists of per-layer modules; the hybrid's ``shared_attn`` is
+    one module."""
+    return _module_from(tree, _param_dtype(cfg), resolve_device(device))
 
 
 def params_to_numpy(params: Params) -> dict:
@@ -183,11 +207,33 @@ def params_to_numpy(params: Params) -> dict:
 
 
 def cache_from_numpy(cfg, cache: Mapping, device="cuda") -> dict:
-    """``init_cache``'s dict of numpy arrays → tensors in
-    ``cfg.param_dtype`` on ``device``."""
+    """``init_cache``'s dict of numpy arrays (any family) → tensors on
+    ``device`` in the reference's dtypes: ``cfg.param_dtype`` but the f32
+    state (``model.F32_CACHE``: the hybrid's ``ssm``, the ssm family's
+    ``wkv``)."""
     dev = resolve_device(device)
-    return {k: _weight(v, cfg.param_dtype, dev) for k, v in cache.items()}
+    return {k: _weight(v, torch.float32 if k in M.F32_CACHE
+                       else cfg.param_dtype, dev) for k, v in cache.items()}
 
 
 def cache_to_numpy(cache: Mapping) -> dict:
     return {k: _host_weight(v) for k, v in cache.items()}
+
+
+def opt_state_from_numpy(state: Mapping, device="cuda") -> dict:
+    """The reference's AdamW state (``m``, ``v`` and ``master``, f32
+    trees shaped like the parameters, and ``step``) → the port's
+    (``optim.adamw.init``'s layout: three f32 ``Params`` modules and an
+    int32 scalar)."""
+    dev = resolve_device(device)
+    out = {k: _module_from(state[k], lambda name: torch.float32, dev)
+           for k in ("m", "v", "master")}
+    out["step"] = torch.tensor(int(np.asarray(state["step"])),
+                               dtype=torch.int32, device=dev)
+    return out
+
+
+def opt_state_to_numpy(state: Mapping) -> dict:
+    out = {k: params_to_numpy(state[k]) for k in ("m", "v", "master")}
+    out["step"] = np.asarray(state["step"].item(), np.int32)
+    return out

@@ -6,7 +6,7 @@ The counterpart of ``repro.core.queries``: any query of the form
 histogram, and ``map_query``'s user functions — each a ``QueryResult``
 with its CLT variance (§III-D). The histogram's bin sums are segment sums
 in item order on every device (the ``segment_sum`` kernel on the card).
-``weighted_loss`` goes with training (ROADMAP Queue 1 item 13).
+``weighted_loss`` is the training plane's query.
 """
 from __future__ import annotations
 
@@ -16,7 +16,8 @@ import torch
 
 from repro_torch.core import error as err
 from repro_torch.core.sampling import segment_sum
-from repro_torch.core.types import IntervalBatch, QueryResult, SampleResult
+from repro_torch.core.types import (IntervalBatch, QueryResult, SampleResult,
+                                    StratumMeta)
 
 
 def weighted_sum(batch: IntervalBatch, res: SampleResult,
@@ -62,3 +63,15 @@ def weighted_histogram(batch: IntervalBatch, res: SampleResult,
                           0.0)
     var = segment_sum(contrib, seg, nbins)
     return QueryResult(estimate=est, variance=var)
+
+
+def weighted_loss(per_example_loss: torch.Tensor, stratum: torch.Tensor,
+                  selected: torch.Tensor, meta: StratumMeta) -> torch.Tensor:
+    """Training-plane query: unbiased mean loss of the *full* stream.
+
+    ``E[Σ_sel w·loss / Σ_sel w·1] ≈ full-stream mean loss`` — the ratio
+    estimator the approximate-training pipeline feeds to the gradient.
+    """
+    w = meta.weight[stratum.to(torch.int64)] * selected.to(torch.float32)
+    return (torch.sum(w * per_example_loss)
+            / torch.clamp(torch.sum(w), min=1e-9))

@@ -14,8 +14,8 @@ One source node draws from a numpy generator, in the reference's order,
 so one seed gives the same items to both packages; then the tick-major
 epoch ingest layout, from sources (``batch_ingest``) or from records a
 host collected (``ticks_to_ingest``, the serve CLI's request latencies),
-and the flat per-tick batches of the mesh data plane
-(``rows_to_interval_batch``).
+the flat per-tick batches of the mesh data plane
+(``rows_to_interval_batch``), and the training plane's ``TokenStream``.
 """
 from __future__ import annotations
 
@@ -241,3 +241,32 @@ def rows_to_interval_batch(values: np.ndarray, strata: np.ndarray,
                        device=device),
             torch.zeros((ticks, num_strata), dtype=torch.float32,
                         device=device)))
+
+
+class TokenStream:
+    """LM training stream: ``num_strata`` domains with distinct unigram
+    stats and arrival rates — the ApproxIoT strata for approximate
+    training. The reference's ``TokenStream``: one numpy generator drawn
+    in its order, so one seed gives the same batches, bit for bit."""
+
+    def __init__(self, vocab: int, seq_len: int, num_strata: int,
+                 rates: list[float] | None = None, seed: int = 0):
+        self.vocab = vocab
+        self.seq_len = seq_len
+        self.num_strata = num_strata
+        self.rates = np.asarray(rates if rates is not None
+                                else [1.0] * num_strata, np.float64)
+        self.rates = self.rates / self.rates.sum()
+        self.rng = np.random.default_rng(seed)
+        # distinct zipf-ish unigram distribution per domain
+        self._offsets = self.rng.integers(0, vocab, num_strata)
+
+    def examples(self, n: int) -> dict:
+        """n example sequences with domain (stratum) tags."""
+        strata = self.rng.choice(self.num_strata, n,
+                                 p=self.rates).astype(np.int32)
+        ranks = self.rng.zipf(1.3, size=(n, self.seq_len + 1))
+        toks = (ranks + self._offsets[strata][:, None]) % self.vocab
+        toks = toks.astype(np.int32)
+        return {"tokens": toks[:, :-1], "labels": toks[:, 1:],
+                "stratum": strata}

@@ -37,7 +37,14 @@ def _lib():
 def flash_attention(q: torch.Tensor, k: torch.Tensor,
                     v: torch.Tensor) -> torch.Tensor:
     """q ``[B, Hq, S, D]``, k and v ``[B, Hkv, S, D]`` → ``[B, Hq, S, D]``
-    in q's type; causal; S a multiple of ``min(128, S)``."""
+    in q's type; causal; S a multiple of ``min(128, S)``. The kernel has
+    no backward (nor has the reference's), so inputs that autograd
+    tracks raise, on either device: training runs ``attention_impl=
+    "xla"``."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError(
+            "flash_attention has no backward: train with "
+            "attention_impl='xla' (the kernel serves prefill only)")
     if q.device.type == "cpu":
         return ref.flash_attention(q, k, v)
     what = "flash_attention"

@@ -109,7 +109,9 @@ def serve_batch(cfg, params, toks: torch.Tensor,
     reference, the first decoded input is the prompt's FIRST token
     (``toks[:, :1]``), not its last. ``toks`` int ``[B, prompt_len]`` on
     the model's device → the greedy tokens ``[B, decode_len + 1]``
-    (``argmax``, first maximum)."""
+    (``argmax``, first maximum). Every family's cache serves the same
+    way; encdec decodes against ``init_cache``'s zero cross K/V, as the
+    reference's CLI does."""
     decode = train_step.make_decode_step(cfg)
     b, prompt_len = toks.shape
     max_len = prompt_len + decode_len

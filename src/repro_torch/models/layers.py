@@ -23,15 +23,22 @@ _MASKED = -1e30
 class Params(nn.Module):
     """A nested dict of tensors as a module: ``p["wq"]``,
     ``p["attn"]["q_norm"]``, ``"q_norm" in p``; a list becomes an
-    ``nn.ModuleList``. Tensors are parameters without gradients."""
+    ``nn.ModuleList``, and a module given in the tree is kept as it is.
+    Tensors are parameters that take no gradient (serving runs under
+    ``torch.inference_mode``); a train step (``optim.train_step``) asks
+    for theirs for the length of one step."""
 
     def __init__(self, tree: dict):
         super().__init__()
         for name, val in tree.items():
-            if isinstance(val, dict):
+            if isinstance(val, nn.Module):
+                self.add_module(name, val)
+            elif isinstance(val, dict):
                 self.add_module(name, Params(val))
             elif isinstance(val, (list, tuple)):
-                self.add_module(name, nn.ModuleList(Params(t) for t in val))
+                self.add_module(name, nn.ModuleList(
+                    t if isinstance(t, nn.Module) else Params(t)
+                    for t in val))
             else:
                 self.register_parameter(
                     name, nn.Parameter(val, requires_grad=False))
@@ -134,26 +141,28 @@ def _split_heads(x: torch.Tensor, n_heads: int, head_dim: int) -> torch.Tensor:
 
 
 def attention(p, cfg, x: torch.Tensor, positions: torch.Tensor, *,
+              causal: bool = True, kv_x: torch.Tensor | None = None,
               attn_impl: str = "xla") -> torch.Tensor:
-    """Causal self-attention over the full sequence, x ``[B, S, d]``,
-    positions ``[B, S]``. ``attn_impl="pallas"`` runs the flash kernel
-    through ``kernels.flash_attention.ops`` — on a CUDA tensor it launches
-    the kernel or raises; otherwise the grouped einsum path, f32 logits
-    and probabilities cast to x's type. The reference's cross-attention
-    and non-causal options belong to the encdec family and come with it
-    (ROADMAP Queue 1 item 13)."""
+    """Attention over the full sequence, x ``[B, S, d]``, positions
+    ``[B, S]``; ``kv_x`` ``[B, S_kv, d]`` makes it cross-attention (keys
+    and values from ``kv_x``, no RoPE). ``attn_impl="pallas"`` runs the
+    flash kernel through ``kernels.flash_attention.ops`` for causal
+    self-attention only — on a CUDA tensor it launches the kernel or
+    raises; every other call takes the grouped einsum path, f32 logits
+    and probabilities cast to x's type, masked only when ``causal``."""
     h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    src = x if kv_x is None else kv_x
     q = _split_heads(x @ p["wq"], h, hd)
-    k = _split_heads(x @ p["wk"], hkv, hd)
-    v = _split_heads(x @ p["wv"], hkv, hd)
+    k = _split_heads(src @ p["wk"], hkv, hd)
+    v = _split_heads(src @ p["wv"], hkv, hd)
     if cfg.qk_norm:
         q = rmsnorm(p["q_norm"], q)
         k = rmsnorm(p["k_norm"], k)
-    if cfg.rope_theta > 0:
+    if kv_x is None and cfg.rope_theta > 0:
         q = apply_rope(q, positions[:, None, :], cfg.rope_theta)
         k = apply_rope(k, positions[:, None, :], cfg.rope_theta)
 
-    if attn_impl == "pallas":
+    if attn_impl == "pallas" and causal and kv_x is None:
         o = flash_ops.flash_attention(q, k, v)
         b, _, s, _ = o.shape
         o = o.transpose(1, 2).reshape(b, s, h * hd)
@@ -167,10 +176,11 @@ def attention(p, cfg, x: torch.Tensor, positions: torch.Tensor, *,
         qg = q.reshape(b, hkv, group, sq_len, hd)
         logits = torch.einsum("bkgqd,bkld->bkgql", qg.to(f32),
                               k.to(f32)) / (hd ** 0.5)
-        sq, sk = logits.shape[-2], logits.shape[-1]
-        mask = torch.ones((sq, sk), dtype=torch.bool,
-                          device=x.device).tril(diagonal=sk - sq)
-        logits = torch.where(mask, logits, _MASKED)
+        if causal:
+            sq, sk = logits.shape[-2], logits.shape[-1]
+            mask = torch.ones((sq, sk), dtype=torch.bool,
+                              device=x.device).tril(diagonal=sk - sq)
+            logits = torch.where(mask, logits, _MASKED)
         probs = torch.softmax(logits, dim=-1).to(x.dtype)
         o = torch.einsum("bkgql,bkld->bkgqd", probs.to(f32),
                          v.to(f32)).to(x.dtype)
@@ -179,26 +189,31 @@ def attention(p, cfg, x: torch.Tensor, positions: torch.Tensor, *,
 
 
 def attention_decode(p, cfg, x: torch.Tensor, k_cache: torch.Tensor,
-                     v_cache: torch.Tensor, pos: int):
+                     v_cache: torch.Tensor, pos: int, *,
+                     cross: bool = False):
     """One-token decode against a KV cache, x ``[B, 1, d]``, caches
     ``[B, Hkv, S, hd]``; returns ``(out, k_cache, v_cache)``. The new
     token's K and V are written into the caches IN PLACE at ``pos`` (the
-    reference donates its cache and returns a new one)."""
+    reference donates its cache and returns a new one). ``cross=True``
+    attends to a fixed cross-attention cache: no RoPE, no write, every
+    slot valid."""
     h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     b = x.shape[0]
     q = _split_heads(x @ p["wq"], h, hd)                   # [B, H, 1, hd]
     if cfg.qk_norm:
         q = rmsnorm(p["q_norm"], q)
     here = torch.full((b, 1, 1), pos, dtype=torch.int32, device=x.device)
-    k_new = _split_heads(x @ p["wk"], hkv, hd)             # [B, Hkv, 1, hd]
-    v_new = _split_heads(x @ p["wv"], hkv, hd)
-    if cfg.qk_norm:
-        k_new = rmsnorm(p["k_norm"], k_new)
-    if cfg.rope_theta > 0:
+    if not cross and cfg.rope_theta > 0:
         q = apply_rope(q, here, cfg.rope_theta)
-        k_new = apply_rope(k_new, here, cfg.rope_theta)
-    k_cache[:, :, pos:pos + 1] = k_new.to(k_cache.dtype)
-    v_cache[:, :, pos:pos + 1] = v_new.to(v_cache.dtype)
+    if not cross:
+        k_new = _split_heads(x @ p["wk"], hkv, hd)         # [B, Hkv, 1, hd]
+        v_new = _split_heads(x @ p["wv"], hkv, hd)
+        if cfg.qk_norm:
+            k_new = rmsnorm(p["k_norm"], k_new)
+        if cfg.rope_theta > 0:
+            k_new = apply_rope(k_new, here, cfg.rope_theta)
+        k_cache[:, :, pos:pos + 1] = k_new.to(k_cache.dtype)
+        v_cache[:, :, pos:pos + 1] = v_new.to(v_cache.dtype)
 
     group = h // hkv
     s_cache = k_cache.shape[2]
@@ -206,8 +221,9 @@ def attention_decode(p, cfg, x: torch.Tensor, k_cache: torch.Tensor,
     qg = q.reshape(b, hkv, group, hd)                      # [B, Hkv, G, hd]
     logits = torch.einsum("bkgd,bksd->bkgs", qg.to(f32),
                           k_cache.to(f32)) / (hd ** 0.5)
-    valid = torch.arange(s_cache, device=x.device) <= pos
-    logits = torch.where(valid[None, None, None, :], logits, _MASKED)
+    if not cross:
+        valid = torch.arange(s_cache, device=x.device) <= pos
+        logits = torch.where(valid[None, None, None, :], logits, _MASKED)
     probs = torch.softmax(logits, dim=-1)
     o = torch.einsum("bkgs,bksd->bkgd", probs.to(k_cache.dtype).to(f32),
                      v_cache.to(f32)).to(x.dtype)

@@ -1,23 +1,46 @@
-"""The prefill and decode steps the serving path runs.
+"""The train, prefill and decode steps.
 
-The port of ``repro/optim/train_step.py``'s inference half. Both steps
-run under ``torch.inference_mode``. Training (``make_train_step``, AdamW)
-is not ported: it is the training half of ROADMAP Queue 1 item 13, and
-since the reference's flash kernel has no backward it will train with
-``attention_impl="xla"``, as the reference does.
+The port of ``repro/optim/train_step.py``. The train step is the
+weighted loss (``model.loss_fn``), its gradients by autograd (in each
+parameter's dtype), then ``adamw.update``. The flash kernel has no
+backward, in either package: training runs ``attention_impl="xla"``,
+and ``"pallas"`` under autograd raises. Prefill and decode run under
+``torch.inference_mode``.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.models import model as M
+from repro_torch.optim import adamw
 
 
-def make_train_step(cfg, opt_cfg=None):
-    raise NotImplementedError(
-        "training is not ported yet: it is the training half of ROADMAP.md "
-        "Queue 1 item 13 (optim/, data/pipeline.py, launch/train.py); the "
-        "port serves the dense and vlm families")
+def make_train_step(cfg, opt_cfg: adamw.AdamWConfig):
+    """(params, opt_state, batch) → (params, opt_state, metrics); the
+    parameters and the state are updated in place and returned. The
+    metrics carry the reference's names: ``loss``, ``aux_loss``,
+    ``tokens``, ``weight_sum``, ``grad_norm``, ``lr``, ``total_loss``."""
+
+    def step(params, opt_state, batch):
+        leaves = list(params.parameters())
+        for t in leaves:
+            t.requires_grad_(True)
+        try:
+            with torch.enable_grad():
+                loss, metrics = M.loss_fn(cfg, params, batch)
+                grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        finally:
+            for t in leaves:
+                t.requires_grad_(False)
+        grads = [torch.zeros_like(t) if g is None else g
+                 for g, t in zip(grads, leaves)]
+        params, opt_state, opt_m = adamw.update(opt_cfg, grads, opt_state,
+                                                params)
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        metrics = dict(metrics, **opt_m, total_loss=loss.detach())
+        return params, opt_state, metrics
+
+    return step
 
 
 def make_prefill_step(cfg):

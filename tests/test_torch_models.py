@@ -255,20 +255,6 @@ def test_params_round_trip_and_init_layout():
     np.testing.assert_array_equal(c2["k"], cache["k"])
 
 
-@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "whisper-medium",
-                                  "zamba2-1.2b", "rwkv6-7b"])
-def test_unported_families_raise(arch):
-    cfg = TR.get_config(arch).reduced()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
-        TM.init_params(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
-        TM.forward(cfg, None, {"tokens": torch.zeros(1, 4, dtype=torch.long)})
-    with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
-        TM.decode_step(cfg, None, None, torch.zeros(1, 1, dtype=torch.long), 0)
-    with pytest.raises(NotImplementedError, match="training"):
-        TT.make_train_step(cfg)
-
-
 def test_cuda_is_the_default_device():
     cfg = TR.get_config("smollm-135m").reduced()
     if torch.cuda.is_available():

@@ -9,10 +9,12 @@ kernel shares or repeats the faulty line, into it too), and a child
 process runs there: the kernel against its plain version at SmolLM-135M's
 attention shape, then ``chip_smoke.run_prefill`` (SmolLM-135M's bf16
 prefill, pallas against xla, and the f32 B 1 S 512 prefill against the
-CPU) with its failures printed instead of fatal. Each case prints what
-the checks read: the argmax agreement and max abs difference of the bf16
-prefill, the f32 differences, and which checks failed. The checkout
-itself is never changed.
+CPU), then ``chip_smoke.family_prefill`` for qwen2-moe-a2.7b (2 layers,
+B 4, S 2048, bf16: pallas against xla, with the share of tokens routed
+alike), each with its failures printed instead of fatal. Each case prints
+what the checks read: the argmax agreement and max abs difference of the
+bf16 prefills, the f32 differences, and which checks failed. The
+checkout itself is never changed.
 
     python3 tools/flash_planted_faults.py
 """
@@ -63,6 +65,10 @@ print(f"kernel vs plain {C.SMOLLM_ATTN} bf16: max abs "
 del q, k, v, got, want
 C.run_prefill(dev, LAUNCHES, reset_launches)
 print(f"prefill checks failed: {len(failed)}")
+n = len(failed)
+C.family_prefill("qwen2-moe-a2.7b", dev, LAUNCHES, reset_launches,
+                 "this card")
+print(f"qwen2-moe prefill checks failed: {len(failed) - n}")
 """
 
 
