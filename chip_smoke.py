@@ -313,10 +313,12 @@ def traced(fn, *calls: int):
     the trace before it. So the
     runs follow two uncounted calls, each between pads, and a last pad
     closes the trace: when a pad is lost, the windows no longer match
-    the runs, which the caller sees from their event counts."""
+    the runs, which the caller sees from their event counts. Only the
+    device is traced: a host trace of a decode loop's ≈ 10^5 operations
+    took most of the SmolLM-135M serve phase's 104.6 s on an H100 80GB
+    HBM3, 700 W."""
     walls = []
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(2):
             _pad()
             fn()
@@ -2748,6 +2750,282 @@ def sass_counts(lib: Path) -> None:
         fail(f"flash_attention's SASS lacks wgmma or TMA loads: {n}")
 
 
+# The model mesh: SmolLM-135M at full width, cut to MODEL_MESH_LAYERS of
+# its 30 layers, on data 2 × model 2 gloo ranks sharing the card (each
+# collective staged through the host), B 8, S 256 (at full depth a bf16
+# step took 8.5-13.3 s, 1,458 staged collectives, and the phase 169-216 s
+# on an H100 80GB HBM3 at 700 W): an f32 copy takes MODEL_MESH_F32_STEPS steps, held to the
+# one-rank card steps from the same weights and batch (each step's loss
+# and grad_norm within TRAIN_RTOL; each gathered leaf after the first
+# step as train_close holds a first step's), then the
+# bf16 model takes MODEL_MESH_BF16_STEPS timed steps after a warm-up. And
+# qwen2-moe-a2.7b at full width, 2 layers, f32, B 4, S 256: one sharded
+# forward (60 experts over model 2: expert-parallel), every rank's kept
+# set bitwise its group's rows of the one-rank card forward in G = 2
+# groups (a stand-in mesh of the same sizes), the logits within
+# MODEL_MESH_MOE_REL of the largest.
+MODEL_MESH = (2, 2)
+MODEL_MESH_TRAIN = (8, 256)
+MODEL_MESH_LAYERS = 8
+MODEL_MESH_F32_STEPS = 2
+MODEL_MESH_BF16_STEPS = 3
+MODEL_MESH_MOE = (4, 256, 2)     # B, S, layers
+MODEL_MESH_MOE_REL = 1e-4
+
+
+class MeshSizes:
+    """A stand-in mesh of axis names and sizes: under ``use_mesh`` the
+    models take their mesh branches (moe's groups, attention's einsum)
+    on plain tensors, with no rank."""
+
+    axis_names = ("data", "model")
+    shape = dict(zip(("data", "model"), MODEL_MESH))
+
+
+def model_mesh_rank(job: dict) -> dict:
+    """One rank of the model-mesh phase (every rank runs it; see
+    MODEL_MESH): rank 0 also runs the one-rank card references and
+    compares."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import registry
+    from repro_torch.launch import sharding as SH
+    from repro_torch.launch.mesh import make_model_mesh, model_mesh_ledger
+    from repro_torch.launch.meshctx import use_mesh
+    from repro_torch.models import model as M
+    from repro_torch.models import moe as MOE
+    from repro_torch.optim import adamw, train_step as T
+
+    mesh = make_model_mesh(MODEL_MESH, ("data", "model"), device="cuda",
+                           backend="gloo")
+    dev = torch.device("cuda", 0)
+    rank = dist.get_rank()
+    ledger = model_mesh_ledger(mesh)
+    out: dict = {"rank": rank, "coords": tuple(mesh.get_coordinate())}
+    opt_cfg = adamw.AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=10)
+    b, s = MODEL_MESH_TRAIN
+
+    def placed(cfg, batch):
+        params = M.init_params(cfg, seed=0, device=dev)
+        state = adamw.init(params, dev)
+        spec = SH.param_specs(params, mesh)
+        SH.distribute(params, spec, mesh)
+        state = SH.distribute(state, SH.opt_state_specs(None, spec, mesh),
+                              mesh)
+        return params, state, SH.distribute(batch, SH.batch_specs(
+            batch, mesh), mesh)
+
+    def floats(met):
+        return {k: float(SH.gather_tensor(v)) for k, v in met.items()}
+
+    # the f32 copy: each step sharded, then (rank 0) on one rank; the
+    # leaves held after the first (train_close's rules are a first
+    # step's), the loss and grad_norm of every step
+    cfg = dataclasses.replace(registry.get_config("smollm-135m"),
+                              num_layers=MODEL_MESH_LAYERS,
+                              param_dtype=torch.float32)
+    batch = family_batch(cfg, b, s, 0, torch.Generator().manual_seed(31),
+                         dev, train=True)
+    params, state, placed_batch = placed(cfg, batch)
+    step = T.make_train_step(cfg, opt_cfg)
+    if rank == 0:
+        p1 = M.init_params(cfg, seed=0, device=dev)
+        s1 = adamw.init(p1, dev)
+    mets, one = [], []
+    for i in range(MODEL_MESH_F32_STEPS):
+        with use_mesh(mesh):
+            params, state, met = step(params, state, placed_batch)
+        mets.append(floats(met))
+        if i == 0:   # every rank gathers; rank 0 compares
+            sharded = (SH.gather(params), SH.gather(state["m"]),
+                       SH.gather(state["v"]))
+        if rank == 0:
+            p1, s1, met = step(p1, s1, batch)
+            one.append(floats(met))
+            for k in ("loss", "grad_norm"):
+                a, w = mets[-1][k], one[-1][k]
+                if abs(a - w) > TRAIN_RTOL * abs(w):
+                    fail(f"model mesh f32 step {i + 1}: {k} {a!r} sharded "
+                         f"against {w!r} on one rank")
+            if i == 0:
+                out["f32_close"] = train_close(
+                    "model mesh f32", "dense", sharded,
+                    (p1, s1["m"], s1["v"]), mets[-1], one[-1])
+        if i == 0:
+            del sharded
+    out["f32"] = dict(steps=mets, one_rank=one)
+    del params, state, placed_batch
+    if rank == 0:
+        del p1, s1
+    torch.cuda.empty_cache()
+    dist.barrier()
+
+    # bf16: a warm-up step, then timed steps with their collectives
+    cfg = dataclasses.replace(registry.get_config("smollm-135m"),
+                              num_layers=MODEL_MESH_LAYERS)
+    batch = family_batch(cfg, b, s, 0, torch.Generator().manual_seed(32),
+                         dev, train=True)
+    step = T.make_train_step(cfg, opt_cfg)
+    params, state, placed_batch = placed(cfg, batch)
+    with use_mesh(mesh):
+        params, state, met = step(params, state, placed_batch)
+        torch.cuda.synchronize(dev)
+        dist.barrier()
+        ledger.reset()
+        t0 = time.perf_counter()
+        losses = []
+        for _ in range(MODEL_MESH_BF16_STEPS):
+            params, state, met = step(params, state, placed_batch)
+            losses.append(float(SH.gather_tensor(met["loss"])))
+        torch.cuda.synchronize(dev)
+        secs = time.perf_counter() - t0
+        coll = ledger.totals()
+        by_kind = {k: dict(v) for k, v in ledger.calls.items()}
+
+        def one_step():
+            step(params, state, placed_batch)
+
+        if rank == 0:
+            out["bf16_profile"] = busy_share(one_step)
+        else:
+            one_step()
+    out["bf16"] = dict(secs=secs, losses=losses, collectives=coll,
+                       by_kind=by_kind)
+    if not all(np.isfinite(losses)):
+        fail(f"model mesh bf16: losses {losses}")
+    del params, state, placed_batch
+    torch.cuda.empty_cache()
+    dist.barrier()
+
+    # the moe: one sharded f32 forward, every rank's kept sets recorded
+    mb, ms, layers = MODEL_MESH_MOE
+    cfg = dataclasses.replace(registry.get_config("qwen2-moe-a2.7b"),
+                              num_layers=layers, param_dtype=torch.float32)
+    batch = family_batch(cfg, mb, ms, 0, torch.Generator().manual_seed(33),
+                         dev)
+    params = M.init_params(cfg, seed=0, device=dev)
+    SH.distribute(params, SH.param_specs(params, mesh), mesh)
+    placed_batch = SH.distribute(batch, SH.batch_specs(batch, mesh), mesh)
+    seen, real = [], MOE.select
+
+    def spy(*args, **kw):
+        got = real(*args, **kw)
+        seen.append((got[1].cpu().numpy(), got[3].cpu().numpy()))
+        return got
+
+    MOE.select = spy
+    try:
+        with use_mesh(mesh):
+            logits = T.make_prefill_step(cfg)(params, placed_batch)
+        logits = SH.gather_tensor(logits)
+    finally:
+        MOE.select = real
+    out["moe_kept"] = seen
+    if rank == 0:
+        plain = M.init_params(cfg, seed=0, device=dev)
+        want_seen = []
+
+        def spy1(*args, **kw):
+            got = real(*args, **kw)
+            want_seen.append((got[1].cpu().numpy(), got[3].cpu().numpy()))
+            return got
+
+        MOE.select = spy1
+        try:
+            with use_mesh(MeshSizes()):
+                want = T.make_prefill_step(cfg)(plain, batch)
+        finally:
+            MOE.select = real
+        out["moe_want"] = want_seen
+        scale = float(want.abs().max())
+        out["moe_logits"] = dict(max_abs=float((logits - want).abs().max()),
+                                 scale=scale)
+    dist.barrier()
+    return out
+
+
+def run_model_mesh(card: str) -> None:
+    """The model-mesh phase (see MODEL_MESH): four gloo ranks sharing the
+    card; fails on any check."""
+    from repro_torch.launch.mesh import make_model_mesh, spawn_ranks
+
+    t_phase = time.perf_counter()
+    try:
+        make_model_mesh(MODEL_MESH, ("data", "model"), device="cuda",
+                        backend="gloo")
+    except RuntimeError as e:
+        print(f"model mesh: asked for without its ranks, raises: "
+              f"{str(e)[:60]}...")
+    else:
+        fail("a model mesh was made without its ranks")
+    n = MODEL_MESH[0] * MODEL_MESH[1]
+    ranks = spawn_ranks(model_mesh_rank, n, args=({},), device="cuda",
+                        backend="gloo", timeout_s=600)
+    r0 = ranks[0]
+    f32 = r0["f32"]
+    print(f"model mesh: SmolLM-135M ({MODEL_MESH_LAYERS} layers) f32, data "
+          f"{MODEL_MESH[0]} x model "
+          f"{MODEL_MESH[1]} gloo ranks sharing the card, B "
+          f"{MODEL_MESH_TRAIN[0]} S {MODEL_MESH_TRAIN[1]}: "
+          + "; ".join(f"step {i + 1} loss {a['loss']:.6f} / {w['loss']:.6f}"
+                      f" grad_norm {a['grad_norm']:.6f} / "
+                      f"{w['grad_norm']:.6f}"
+                      for i, (a, w) in enumerate(zip(f32["steps"],
+                                                     f32["one_rank"])))
+          + f" (sharded / one rank); leaves after step 1 against the "
+          f"one-rank step: {r0['f32_close']}")
+    bf = r0["bf16"]
+    steps = MODEL_MESH_BF16_STEPS
+    coll = bf["collectives"]
+    prof = r0["bf16_profile"]
+    print(f"model mesh bf16, {MODEL_MESH_LAYERS} layers ({card}): "
+          f"{steps / bf['secs']:.4f} steps/s "
+          f"({bf['secs'] / steps * 1e3:.1f} ms a step), rank 0 collectives "
+          f"a step {coll['calls'] / steps:.0f} calls, "
+          f"{coll['bytes'] / steps / 1e6:.3f} MB, "
+          f"{coll['seconds'] / steps * 1e3:.1f} ms (host copies "
+          f"{coll['host_copies'] / steps:.0f}, "
+          f"{coll['host_copy_bytes'] / steps / 1e6:.3f} MB); by kind "
+          + ", ".join(f"{k} {v['calls'] / steps:.0f}x "
+                      f"{v['bytes'] / steps / 1e6:.3f} MB "
+                      f"{v['seconds'] / steps * 1e3:.1f} ms"
+                      for k, v in sorted(bf["by_kind"].items()))
+          + f"; a profiled step: busy {prof['busy_ms']:.1f} of "
+          f"{prof['wall_ms']:.1f} ms ({prof['busy_ms'] / prof['wall_ms']:.4f}"
+          f"), {prof['events']} device events; losses {bf['losses']}")
+    want = r0["moe_want"]
+    b, s, layers = MODEL_MESH_MOE
+    tg = b * s // MODEL_MESH[0]
+    for r in ranks:
+        g = r["coords"][0]
+        if len(r["moe_kept"]) != layers:
+            fail(f"model mesh moe: rank {r['rank']} routed "
+                 f"{len(r['moe_kept'])} layers, expected {layers}")
+        for i, ((ix, keep), (wix, wkeep)) in enumerate(
+                zip(r["moe_kept"], want)):
+            rows = slice(g * tg, (g + 1) * tg)
+            if not (np.array_equal(ix, wix[rows])
+                    and np.array_equal(keep, wkeep[rows])):
+                fail(f"model mesh moe: rank {r['rank']} layer {i} kept "
+                     f"set differs from its group's in the one-rank G = 2 "
+                     f"forward")
+    dropped = sum(int((~k).sum()) for _, k in want)
+    lg = r0["moe_logits"]
+    if lg["max_abs"] > MODEL_MESH_MOE_REL * lg["scale"]:
+        fail(f"model mesh moe: logits max abs {lg['max_abs']} against the "
+             f"one-rank G = 2 forward, beyond {MODEL_MESH_MOE_REL} x "
+             f"{lg['scale']}")
+    print(f"model mesh moe: qwen2-moe-a2.7b f32 {layers} layers, B {b} S "
+          f"{s}, expert-parallel over model {MODEL_MESH[1]}: every rank's "
+          f"kept set bitwise its group's of the one-rank G = 2 forward "
+          f"({dropped} pairs dropped of {sum(k.size for _, k in want)}); "
+          f"logits max abs {lg['max_abs']:.3e} of {lg['scale']:.3f}")
+    print(f"model mesh phase: {time.perf_counter() - t_phase:.1f} s "
+          f"({card})")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a "
@@ -2941,6 +3219,10 @@ def main() -> None:
     # ranks on the CPU.
     run_mesh_plane(P, S, A)
     phase_done("mesh plane")
+    # The model mesh: sharded training and the moe's groups on gloo ranks
+    # sharing the card.
+    run_model_mesh(card)
+    phase_done("model mesh")
 
     # 4. Times, at the main path's shapes: device time from the profiler
     # (what ``ms``, ``plain_ms`` and ``library_ms`` report), and beside it

@@ -9,7 +9,8 @@ step:
         arr_00000.npy ...     one file per leaf, in flatten order
 
 Leaves are saved as full host arrays (a bf16 tensor as the f32 array of
-its values, which ``restore`` casts back). The flatten order is the one
+its values, which ``restore`` casts back; a DTensor of a model mesh is
+gathered whole first, a collective all its ranks join). The flatten order is the one
 ``jax.tree_util.tree_flatten`` gives the reference's pytrees: NamedTuple
 fields in declaration order, tuples and lists in order, dicts by sorted
 key, ``()`` and ``None`` no leaf, every tensor or array one leaf. The
@@ -86,7 +87,10 @@ def _describe(tree) -> str:
 
 def _host(leaf) -> np.ndarray:
     if torch.is_tensor(leaf):
-        leaf = leaf.detach().cpu()
+        # a model mesh's DTensor is saved whole (every rank gathers it)
+        from repro_torch.launch.sharding import gather_tensor
+
+        leaf = gather_tensor(leaf.detach()).cpu()
         if leaf.dtype == torch.bfloat16:   # numpy has no bf16: exact in f32
             leaf = leaf.to(torch.float32)
         return leaf.numpy()

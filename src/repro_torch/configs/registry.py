@@ -1,12 +1,17 @@
-"""--arch registry: name → ArchConfig.
+"""--arch registry: name → ArchConfig, plus input_specs() per shape.
 
-The port's own copy of ``repro/configs/registry.py``, without
-``input_specs``: that builds the dry-run's abstract inputs, XLA tooling
-that the port does not carry (ROADMAP Queue 1 item 14).
+The port of ``repro/configs/registry.py``. ``input_specs(cfg, shape)``
+returns ``meta`` tensors (shapes and dtypes, no storage) standing in for
+every input of one cell's step, the reference's shapes and dtypes: the
+dry run distributes and runs against these. Modality frontends are
+stubs: audio/vision entries include precomputed frame/patch embeddings
+at ``d_model``.
 """
 from __future__ import annotations
 
 import importlib
+
+import torch
 
 from repro_torch.configs.base import SHAPES, ArchConfig, ShapeConfig, shape_applicable
 
@@ -26,7 +31,7 @@ _MODULES = {
 ARCH_NAMES = list(_MODULES)
 
 __all__ = ["ARCH_NAMES", "ArchConfig", "SHAPES", "ShapeConfig", "all_cells",
-           "get_config", "shape_applicable"]
+           "get_config", "input_specs", "shape_applicable"]
 
 
 def get_config(name: str) -> ArchConfig:
@@ -34,6 +39,54 @@ def get_config(name: str) -> ArchConfig:
         raise KeyError(f"unknown arch {name!r}; known: {ARCH_NAMES}")
     mod = importlib.import_module(f"repro_torch.configs.{_MODULES[name]}")
     return mod.CONFIG
+
+
+def _sds(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def input_specs(cfg: ArchConfig, shape: ShapeConfig | str) -> dict:
+    """``meta`` tensors for one (arch × shape) cell's step inputs."""
+    if isinstance(shape, str):
+        shape = SHAPES[shape]
+    ok, why = shape_applicable(cfg, shape)
+    if not ok:
+        raise ValueError(f"{cfg.name} × {shape.name}: {why}")
+    b, s = shape.global_batch, shape.seq_len
+    i32 = torch.int32
+
+    if shape.kind in ("train", "prefill"):
+        specs = {
+            "tokens": _sds((b, s), i32),
+            "stratum": _sds((b,), i32),
+            "weight": _sds((b,), torch.float32),
+        }
+        if shape.kind == "train":
+            specs["labels"] = _sds((b, s), i32)
+        if cfg.family == "encdec":
+            # conv frontend stub: precomputed frame embeddings; split the
+            # budget: encoder sees s//2 frames, decoder s//2 tokens.
+            specs["frames"] = _sds((b, s // 2, cfg.d_model), cfg.param_dtype)
+            specs["tokens"] = _sds((b, s // 2), i32)
+            if shape.kind == "train":
+                specs["labels"] = _sds((b, s // 2), i32)
+        if cfg.family == "vlm":
+            # vision stub: patch embeddings prepended to the text tokens.
+            p = cfg.num_patches
+            specs["patches"] = _sds((b, p, cfg.d_model), cfg.param_dtype)
+            specs["tokens"] = _sds((b, s - p), i32)
+            if shape.kind == "train":
+                specs["labels"] = _sds((b, s - p), i32)
+        return specs
+
+    # decode: one new token against a cache of seq_len.
+    from repro_torch.models import model as model_lib
+
+    return {
+        "token": _sds((b, 1), i32),
+        "pos": _sds((), i32),
+        "cache": model_lib.cache_specs(cfg, b, s),
+    }
 
 
 def all_cells():

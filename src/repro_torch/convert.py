@@ -18,7 +18,9 @@ decoder's and the encoder's layers stacked on axis 0) and builds the
 port's ``Params`` module with one entry per layer; ``params_to_numpy``
 stacks them back. ``cache_from_numpy`` and ``cache_to_numpy`` carry
 ``init_cache``'s dict of every family, ``opt_state_from_numpy`` and
-``opt_state_to_numpy`` the AdamW state. Every leaf takes the
+``opt_state_to_numpy`` the AdamW state. Going to numpy, a DTensor of a
+model mesh is gathered whole (``launch.sharding.gather``), so every
+rank of the mesh must make the same call. Every leaf takes the
 reference's dtype: the model's, but f32 for the leaves the reference
 keeps in f32 in a bf16 model. bf16 arrays (numpy's ``bfloat16`` from
 the reference) come in bit for bit and go out as f32, which holds every
@@ -142,7 +144,9 @@ def _weight(a, dtype, device) -> torch.Tensor:
 
 
 def _host_weight(t: torch.Tensor) -> np.ndarray:
-    t = t.detach().cpu()
+    from repro_torch.launch.sharding import gather_tensor
+
+    t = gather_tensor(t.detach()).cpu()
     if t.dtype == torch.bfloat16:
         t = t.to(torch.float32)
     return t.numpy()
@@ -235,5 +239,5 @@ def opt_state_from_numpy(state: Mapping, device="cuda") -> dict:
 
 def opt_state_to_numpy(state: Mapping) -> dict:
     out = {k: params_to_numpy(state[k]) for k in ("m", "v", "master")}
-    out["step"] = np.asarray(state["step"].item(), np.int32)
+    out["step"] = np.asarray(_host_weight(state["step"]).item(), np.int32)
     return out

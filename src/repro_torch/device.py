@@ -10,8 +10,9 @@ import torch
 
 
 def resolve_device(device: str | torch.device | None = "cuda") -> torch.device:
-    """``"cuda"`` (the default), ``"cuda:N"`` or ``"cpu"`` → a
-    ``torch.device``; raises ``RuntimeError`` for CUDA without a card."""
+    """``"cuda"`` (the default), ``"cuda:N"``, ``"cpu"`` or ``"meta"``
+    (shapes and types only, for the dry run) → a ``torch.device``;
+    raises ``RuntimeError`` for CUDA without a card."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
@@ -21,6 +22,6 @@ def resolve_device(device: str | torch.device | None = "cuda") -> torch.device:
                 "device='cpu' to run the plain PyTorch path on the CPU")
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
-    elif dev.type != "cpu":
+    elif dev.type not in ("cpu", "meta"):
         raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
     return dev

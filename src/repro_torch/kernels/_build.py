@@ -128,3 +128,14 @@ def stream_of(t) -> ctypes.c_void_p:
     import torch
 
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def plain_only(what: str, *tensors) -> None:
+    """Raise if a DTensor reaches a kernel wrapper: the kernels take one
+    rank's plain tensors (under a model mesh the models take their
+    einsum paths)."""
+    from torch.distributed.tensor import DTensor
+
+    if any(isinstance(t, DTensor) for t in tensors):
+        raise TypeError(f"{what} takes plain tensors, not DTensors: under "
+                        f"a model mesh the models run their einsum paths")

@@ -41,6 +41,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor,
     no backward (nor has the reference's), so inputs that autograd
     tracks raise, on either device: training runs ``attention_impl=
     "xla"``."""
+    _build.plain_only("flash_attention", q, k, v)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         raise RuntimeError(
             "flash_attention has no backward: train with "

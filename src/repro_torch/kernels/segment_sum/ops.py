@@ -32,6 +32,7 @@ def segment_sum(values: torch.Tensor, seg: torch.Tensor,
                 num_segments: int) -> torch.Tensor:
     """``[..., M]`` values and ids → ``[..., S]`` sums; ids outside
     ``[0, S)`` are dropped."""
+    _build.plain_only("segment_sum", values, seg)
     if values.device.type == "cpu" or not values.is_floating_point():
         return ref.segment_sum(values, seg, num_segments)
     if values.device.type != "cuda":

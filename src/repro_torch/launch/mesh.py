@@ -1,7 +1,25 @@
-"""The data mesh: one rank per edge node, collectives in a fixed order.
+"""Meshes: the data mesh (one rank per edge node, collectives in a fixed
+order) and the model meshes.
 
-The counterpart of the data-plane half of ``repro.launch.mesh`` and of
-``repro.launch.analytics.make_data_mesh``. The reference runs the
+The port of ``repro.launch.mesh`` and of
+``repro.launch.analytics.make_data_mesh``.
+
+*Model meshes* are ``torch.distributed.device_mesh.DeviceMesh``es with
+``mesh_dim_names`` over the ranks of the current process group, ranks
+in row-major order of the mesh's shape:
+
+* ``make_production_mesh(multi_pod=)`` — ``(16, 16)`` over
+  ``("data", "model")``, or ``(2, 16, 16)`` with ``"pod"`` in front
+  (256 or 512 ranks; the dry run gives them a ``fake`` process group);
+* ``make_host_mesh()`` — every rank of the group on one ``("data",)``
+  axis;
+* ``make_model_mesh(shape, axes, device=, backend=)`` — any shape, on
+  the ranks ``spawn_ranks`` starts.
+
+Each raises unless this process is a rank of a group of the mesh's size:
+a mesh is never made without its ranks.
+
+*The data mesh.* The reference runs the
 §III-E hierarchy in one process over a ``("data",)`` device axis under
 ``shard_map``; the port runs one process per rank over
 ``torch.distributed``, every rank calling the same code in the same
@@ -250,6 +268,69 @@ def make_data_mesh(n_devices: int, *, device: str = "cuda",
                     device=rank_device(rank, device=device, backend=backend))
 
 
+def _world_mesh(shape: tuple, axes: tuple, device_type: str):
+    import math
+
+    from torch.distributed.device_mesh import DeviceMesh
+
+    n = math.prod(shape)
+    if not dist.is_initialized():
+        raise RuntimeError(
+            f"a {'x'.join(map(str, shape))} model mesh needs {n} ranks: "
+            f"make it inside the rank processes that spawn_ranks starts "
+            f"(or, for the dry run, a fake process group of {n} ranks); "
+            f"this process is not one of them")
+    if dist.get_world_size() != n:
+        raise RuntimeError(f"this rank's process group has "
+                           f"{dist.get_world_size()} ranks, and a "
+                           f"{'x'.join(map(str, shape))} mesh needs {n}")
+    return DeviceMesh(device_type, torch.arange(n).reshape(shape),
+                      mesh_dim_names=tuple(axes))
+
+
+def make_production_mesh(*, multi_pod: bool = False):
+    """``(16, 16)`` ``("data", "model")``, or ``(2, 16, 16)`` with
+    ``"pod"`` in front, over this process group's 256 or 512 ranks; the
+    mesh's device type is the one of the group's backend (``cpu`` for
+    ``gloo`` and ``fake``, ``cuda`` for ``nccl``)."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return _world_mesh(shape, axes, _group_device_type())
+
+
+def make_host_mesh():
+    """Every rank of this process group on one ``("data",)`` axis."""
+    if not dist.is_initialized():
+        raise RuntimeError("make_host_mesh: no process group; make the "
+                           "mesh inside the ranks that spawn_ranks starts")
+    return _world_mesh((dist.get_world_size(),), ("data",),
+                       _group_device_type())
+
+
+def _group_device_type() -> str:
+    if dist.is_initialized() and dist.get_backend() == "nccl":
+        return "cuda"
+    return "cpu"
+
+
+def make_model_mesh(shape, axes, *, device: str = "cuda", backend: str):
+    """This rank's ``DeviceMesh`` of ``shape`` over ``axes`` inside
+    ``spawn_ranks``: ``nccl`` ranks one card each, ``gloo`` ranks on the
+    CPU or sharing ``cuda:0``. The group must have ``prod(shape)`` ranks
+    and the named backend."""
+    import math
+
+    shape, axes = tuple(shape), tuple(axes)
+    if len(shape) != len(axes):
+        raise ValueError(f"mesh shape {shape} and axes {axes} differ in "
+                         f"length")
+    _check_backend(math.prod(shape), device, backend)
+    if dist.is_initialized() and dist.get_backend() != backend:
+        raise RuntimeError(f"this rank's process group runs "
+                           f"{dist.get_backend()!r}, not {backend!r}")
+    return _world_mesh(shape, axes, torch.device(device).type)
+
+
 def _rank_main(rank, n, fn, args, device, backend, timeout_s, init_file,
                out_dir):
     """One rank: join the group, run ``fn(*args)``, pickle its result."""
@@ -308,3 +389,129 @@ def spawn_ranks(fn, n: int, *, args=(), device: str = "cuda",
             with open(os.path.join(tmp, f"rank{r}.pkl"), "rb") as f:
                 results.append(pickle.load(f))
     return results
+
+
+# ------------------------------------------------- model mesh collectives --
+_FUNCOL = ("_c10d_functional", "c10d_functional")
+_NOT_COLLECTIVE = ("wait_tensor", "_wrap_tensor_autograd")
+
+
+class ModelMeshLedger:
+    """The collectives a model mesh's DTensors issue on this rank, by
+    kind: calls, operand bytes, and seconds from the operand's readiness
+    to the result's (the device synchronised on each side); and, for
+    gloo ranks on a card, the operand and result copies staged through
+    the host."""
+
+    def __init__(self):
+        self.reset()
+
+    def reset(self) -> None:
+        self.calls: dict[str, dict] = {}
+        self.host_copies = 0
+        self.host_copy_bytes = 0
+
+    def add(self, kind: str, nbytes: int, seconds: float) -> None:
+        row = self.calls.setdefault(kind, {"calls": 0, "bytes": 0,
+                                           "seconds": 0.0})
+        row["calls"] += 1
+        row["bytes"] += nbytes
+        row["seconds"] += seconds
+
+    def totals(self) -> dict:
+        return {"calls": sum(r["calls"] for r in self.calls.values()),
+                "bytes": sum(r["bytes"] for r in self.calls.values()),
+                "seconds": sum(r["seconds"] for r in self.calls.values()),
+                "host_copies": self.host_copies,
+                "host_copy_bytes": self.host_copy_bytes}
+
+
+def _collectives_mode(ledger: ModelMeshLedger, stage: bool):
+    """A dispatch mode over DTensor's collectives (the
+    ``_c10d_functional`` operations it issues on local tensors): each is
+    timed into ``ledger`` and, with ``stage``, run on host copies of its
+    CUDA operands, the result copied back (gloo ranks sharing a card)."""
+    from torch.distributed.tensor import DTensor
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves, tree_map
+
+    class Collectives(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            leaves = tree_leaves((args, kwargs))
+            if any(isinstance(t, DTensor) for t in leaves):
+                return NotImplemented   # its local operations come back
+            name = func._schema.name.split("::")[-1]
+            if func.namespace not in _FUNCOL or name in _NOT_COLLECTIVE:
+                return func(*args, **kwargs)
+            tensors = [t for t in leaves if isinstance(t, torch.Tensor)]
+            cuda = [t for t in tensors if t.device.type == "cuda"]
+            dev = cuda[0].device if cuda else None
+            if dev is not None:
+                torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            if stage and dev is not None:
+                def host(t):
+                    if isinstance(t, torch.Tensor) and t.device.type == "cuda":
+                        ledger.host_copies += 1
+                        ledger.host_copy_bytes += t.numel() * t.element_size()
+                        return t.cpu()
+                    return t
+
+                out = func(*tree_map(host, args), **tree_map(host, kwargs))
+                out = tree_map(lambda t: torch.ops._c10d_functional
+                               .wait_tensor(t) if isinstance(
+                                   t, torch.Tensor) else t, out)
+
+                def back(t):
+                    if isinstance(t, torch.Tensor):
+                        ledger.host_copies += 1
+                        ledger.host_copy_bytes += t.numel() * t.element_size()
+                        return t.to(dev)
+                    return t
+
+                out = tree_map(back, out)
+                if name.endswith("_"):          # in place: into the operand
+                    args[0].copy_(out)
+                    out = args[0]
+            else:
+                out = func(*args, **kwargs)
+                out = tree_map(lambda t: torch.ops._c10d_functional
+                               .wait_tensor(t) if isinstance(
+                                   t, torch.Tensor) else t, out)
+            if dev is not None:
+                torch.cuda.synchronize(dev)
+            src = tensors[:1]
+            ledger.add(name, sum(t.numel() * t.element_size() for t in src),
+                       time.perf_counter() - t0)
+            return out
+
+    return Collectives()
+
+
+def model_mesh_ledger(mesh) -> ModelMeshLedger | None:
+    """The ledger that ``use_mesh`` keeps for a ``DeviceMesh`` (made on
+    first use), or None for a rule stand-in."""
+    if not hasattr(mesh, "mesh_dim_names"):
+        return None
+    ledger = getattr(mesh, "_repro_ledger", None)
+    if ledger is None:
+        ledger = ModelMeshLedger()
+        mesh._repro_ledger = ledger
+    return ledger
+
+
+def collectives(mesh):
+    """The context ``use_mesh`` and ``sharding.gather`` run a model mesh
+    in: DTensor's collectives counted into ``model_mesh_ledger(mesh)``,
+    and staged through the host when the mesh's ranks are gloo ranks on
+    a card (gloo's own CUDA collectives are not relied on; no step
+    moves to the CPU)."""
+    ledger = model_mesh_ledger(mesh)
+    if ledger is None or not dist.is_initialized() \
+            or dist.get_backend() == "fake":
+        import contextlib
+
+        return contextlib.nullcontext()
+    stage = mesh.device_type == "cuda" and dist.get_backend() == "gloo"
+    return _collectives_mode(ledger, stage)

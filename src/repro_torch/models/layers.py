@@ -4,10 +4,14 @@ full-sequence path and the one-token decode path), MLPs, embeddings.
 The port of ``repro/models/layers.py``. Parameters keep the reference's
 names and its ``[d_in, d_out]`` weight layout (``x @ w``), so carrying
 weights across is a copy; they live in ``Params`` modules (a nested dict
-of tensors as an ``nn.Module``). Activation sharding
-(``launch.meshctx.shard``) is a no-op without a mesh and is dropped; the
-mesh-only head-repeated attention path waits for model sharding
-(ROADMAP Queue 1 item 12b).
+of tensors as an ``nn.Module``). Activations carry the reference's
+logical sharding constraints (``launch.meshctx.shard``): the identity
+without a mesh, a DTensor redistribution under one. Under a model mesh
+attention takes the reference's mesh-aware branch (the grouped einsum
+with kv heads sharded when they divide the "model" axis, else K/V
+repeated to every query head and the heads sharded, unevenly where they
+must be) and never the flash kernel, whose wrapper takes plain tensors
+only.
 """
 from __future__ import annotations
 
@@ -16,6 +20,8 @@ from torch import nn
 from torch.nn import functional as F
 
 from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.launch.meshctx import current_mesh, shard
+from repro_torch.launch.sharding import mesh_sizes
 
 _MASKED = -1e30
 
@@ -26,7 +32,9 @@ class Params(nn.Module):
     ``nn.ModuleList``, and a module given in the tree is kept as it is.
     Tensors are parameters that take no gradient (serving runs under
     ``torch.inference_mode``); a train step (``optim.train_step``) asks
-    for theirs for the length of one step."""
+    for theirs for the length of one step. Under a model mesh, ``p[name]``
+    reads a DTensor parameter gathered over its FSDP axes
+    (``_fsdp_gathered``)."""
 
     def __init__(self, tree: dict):
         super().__init__()
@@ -44,7 +52,8 @@ class Params(nn.Module):
                     name, nn.Parameter(val, requires_grad=False))
 
     def __getitem__(self, name: str):
-        return getattr(self, name)
+        t = getattr(self, name)
+        return t if current_mesh() is None else _fsdp_gathered(t)
 
     def __contains__(self, name: str) -> bool:
         return name in self._parameters or name in self._modules
@@ -53,11 +62,41 @@ class Params(nn.Module):
         return list(self._parameters) + list(self._modules)
 
 
+def _fsdp_gathered(t):
+    """A weight as the model reads it: under a model mesh a DTensor
+    parameter is all-gathered over the batch axes ("pod", "data"), where
+    FSDP keeps it sharded, and keeps its "model" (TP) placement; its
+    gradient goes back as a reduce-scatter over the same axes. Anything
+    else as it is."""
+    if not isinstance(t, nn.Parameter):
+        return t
+    from torch.distributed.tensor import DTensor, Replicate
+
+    if not isinstance(t, DTensor):
+        return t
+    names = t.device_mesh.mesh_dim_names
+    want = tuple(Replicate() if n in ("pod", "data") else pl
+                 for n, pl in zip(names, t.placements))
+    return t.redistribute(t.device_mesh, want)
+
+
 def _normal(gen: torch.Generator, shape, dtype, scale: float) -> torch.Tensor:
     """N(0, 1) draws rounded to ``dtype``, times ``scale`` in ``dtype``,
     as the reference's ``jax.random.normal(key, shape, dtype) * scale``;
     the numbers differ from JAX's, the distribution does not."""
     return torch.randn(shape, generator=gen, dtype=torch.float32).to(dtype) * scale
+
+
+def batch_only(x: torch.Tensor) -> torch.Tensor:
+    """An activation ``[B, S, ...]`` (or ``[T, ...]``) with only its
+    batch dim sharded. At a block's input it gathers the
+    sequence-parallel residual's "model" split before a projection
+    (Megatron-SP's all-gather); at a block's output it sums the TP
+    partial products, so that the gradient coming back from the residual
+    is gathered too. Either way DTensor flattens the tokens (forward and
+    backward) with the batch alone split, which every torch version's
+    view rules take."""
+    return shard(x, "batch", *([None] * (x.ndim - 1)))
 
 
 # ----------------------------------------------------------------- norms --
@@ -135,8 +174,36 @@ def attention_init(gen: torch.Generator, cfg, dtype) -> dict:
     return p
 
 
+def _per_rank(fn, *ts: torch.Tensor) -> torch.Tensor:
+    """``fn`` on each rank's local tensors of DTensors, the result placed
+    as the first (``fn`` must contract, reshape or cut no sharded dim);
+    on plain tensors ``fn(*ts)``. For the attention core and the head
+    padding, which DTensor's own rules would run by flattening sharded
+    dims (refused by some torch versions) or not carry at all."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(ts[0], DTensor):
+        return fn(*ts)
+    from torch.distributed.tensor.experimental import local_map
+
+    return local_map(fn, out_placements=(tuple(ts[0].placements),),
+                     in_placements=tuple(tuple(t.placements) for t in ts),
+                     device_mesh=ts[0].device_mesh)(*ts)
+
+
+def _whole_heads(x: torch.Tensor, n_heads: int) -> torch.Tensor:
+    """``x`` with its head dims gathered over "model" when that axis
+    cannot split whole heads (DTensor cannot view a dim sharded
+    unevenly)."""
+    mesh = current_mesh()
+    if mesh is not None and n_heads % mesh_sizes(mesh).get("model", 1):
+        return shard(x, "batch", *([None] * (x.ndim - 1)))
+    return x
+
+
 def _split_heads(x: torch.Tensor, n_heads: int, head_dim: int) -> torch.Tensor:
     b, s, _ = x.shape
+    x = _whole_heads(x, n_heads)
     return x.reshape(b, s, n_heads, head_dim).transpose(1, 2)
 
 
@@ -147,11 +214,13 @@ def attention(p, cfg, x: torch.Tensor, positions: torch.Tensor, *,
     ``[B, S]``; ``kv_x`` ``[B, S_kv, d]`` makes it cross-attention (keys
     and values from ``kv_x``, no RoPE). ``attn_impl="pallas"`` runs the
     flash kernel through ``kernels.flash_attention.ops`` for causal
-    self-attention only — on a CUDA tensor it launches the kernel or
-    raises; every other call takes the grouped einsum path, f32 logits
-    and probabilities cast to x's type, masked only when ``causal``."""
+    self-attention without a mesh only — on a CUDA tensor it launches
+    the kernel or raises; every other call takes an einsum path, f32
+    logits and probabilities cast to x's type, masked only when
+    ``causal``."""
     h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    src = x if kv_x is None else kv_x
+    x = batch_only(x)
+    src = x if kv_x is None else batch_only(kv_x)
     q = _split_heads(x @ p["wq"], h, hd)
     k = _split_heads(src @ p["wk"], hkv, hd)
     v = _split_heads(src @ p["wv"], hkv, hd)
@@ -162,30 +231,75 @@ def attention(p, cfg, x: torch.Tensor, positions: torch.Tensor, *,
         q = apply_rope(q, positions[:, None, :], cfg.rope_theta)
         k = apply_rope(k, positions[:, None, :], cfg.rope_theta)
 
-    if attn_impl == "pallas" and causal and kv_x is None:
+    mesh = current_mesh()
+    if attn_impl == "pallas" and causal and kv_x is None and mesh is None:
         o = flash_ops.flash_attention(q, k, v)
         b, _, s, _ = o.shape
         o = o.transpose(1, 2).reshape(b, s, h * hd)
     else:
-        # The reference's GQA-native grouped einsum (its path when the kv
-        # heads divide the model axis, always so without a mesh): no
-        # head-repeated K/V, products of x's type summed in f32.
+        # The reference's TP strategy, mesh-aware: kv heads dividing the
+        # model axis (always so without a mesh) → the GQA-native grouped
+        # einsum, heads sharded, no head-repeated K/V; otherwise K/V
+        # repeated to every query head and the heads sharded. Products
+        # of x's type summed in f32 on both paths.
+        n_model = mesh_sizes(mesh).get("model", 1) if mesh is not None else 1
         group = h // hkv
         b, _, sq_len, _ = q.shape
-        f32 = torch.float32
-        qg = q.reshape(b, hkv, group, sq_len, hd)
-        logits = torch.einsum("bkgqd,bkld->bkgql", qg.to(f32),
-                              k.to(f32)) / (hd ** 0.5)
-        if causal:
-            sq, sk = logits.shape[-2], logits.shape[-1]
-            mask = torch.ones((sq, sk), dtype=torch.bool,
-                              device=x.device).tril(diagonal=sk - sq)
-            logits = torch.where(mask, logits, _MASKED)
-        probs = torch.softmax(logits, dim=-1).to(x.dtype)
-        o = torch.einsum("bkgql,bkld->bkgqd", probs.to(f32),
-                         v.to(f32)).to(x.dtype)
-        o = o.permute(0, 3, 1, 2, 4).reshape(b, sq_len, h * hd)
-    return o @ p["wo"]
+        if hkv % max(n_model, 1) == 0:
+            qg = shard(q.reshape(b, hkv, group, sq_len, hd),
+                       "batch", "model", None, None, None)
+            k = shard(k, "batch", "model", None, None)
+            v = shard(v, "batch", "model", None, None)
+            o = _per_rank(lambda qq, kk, vv: _scores_then_values(
+                "bkgqd,bkld->bkgql", "bkgql,bkld->bkgqd", qq, kk, vv,
+                causal, x.dtype), qg, k, v)
+            o = o.permute(0, 3, 1, 2, 4).reshape(b, sq_len, h * hd)
+        else:
+            # heads padded with zeros to a multiple of the model axis and
+            # sharded evenly, as XLA pads an uneven head sharding; the
+            # padding is cut off before the out-projection
+            pad = (-h) % max(n_model, 1)
+
+            def heads(t):
+                if pad:
+                    t = _per_rank(lambda u: F.pad(u, (0, 0, 0, 0, 0, pad)),
+                                  shard(t, "batch", None, None, None))
+                return shard(t, "batch", "model", None, None)
+
+            kx = heads(torch.repeat_interleave(k, group, dim=1))
+            vx = heads(torch.repeat_interleave(v, group, dim=1))
+            o = _per_rank(lambda qq, kk, vv: _scores_then_values(
+                "bhqd,bhkd->bhqk", "bhqk,bhkd->bhqd", qq, kk, vv, causal,
+                x.dtype), heads(q), kx, vx)
+            if pad:
+                o = _per_rank(lambda u: u[:, :h],
+                              shard(o, "batch", None, None, None))
+            o = _whole_heads(o.transpose(1, 2).reshape(b, sq_len, h * hd), h)
+    return batch_only(o @ p["wo"])
+
+
+def _scores_then_values(scores: str, values: str, q, k, v, causal: bool,
+                        dtype) -> torch.Tensor:
+    """``softmax(q·kᵀ/√d) · v`` by the two einsums named: products of
+    the operands' type summed in f32, probabilities cast to ``dtype``.
+    Under a mesh each rank runs it on its own batch and heads, which it
+    contracts neither of."""
+    f32 = torch.float32
+    logits = torch.einsum(scores, q.to(f32), k.to(f32)) / (q.shape[-1] ** 0.5)
+    probs = torch.softmax(_causal(logits, causal, q.device),
+                          dim=-1).to(dtype)
+    return torch.einsum(values, probs.to(f32), v.to(f32)).to(dtype)
+
+
+def _causal(logits: torch.Tensor, causal: bool, device) -> torch.Tensor:
+    """``logits [..., Sq, Sk]`` with the future masked when ``causal``
+    (query ``i`` sees keys up to ``i + Sk − Sq``)."""
+    if not causal:
+        return logits
+    sq, sk = logits.shape[-2], logits.shape[-1]
+    mask = torch.ones((sq, sk), dtype=torch.bool,
+                      device=device).tril(diagonal=sk - sq)
+    return torch.where(mask, logits, _MASKED)
 
 
 def attention_decode(p, cfg, x: torch.Tensor, k_cache: torch.Tensor,
@@ -218,7 +332,7 @@ def attention_decode(p, cfg, x: torch.Tensor, k_cache: torch.Tensor,
     group = h // hkv
     s_cache = k_cache.shape[2]
     f32 = torch.float32
-    qg = q.reshape(b, hkv, group, hd)                      # [B, Hkv, G, hd]
+    qg = _whole_heads(q, hkv).reshape(b, hkv, group, hd)   # [B, Hkv, G, hd]
     logits = torch.einsum("bkgd,bksd->bkgs", qg.to(f32),
                           k_cache.to(f32)) / (hd ** 0.5)
     if not cross:
@@ -241,8 +355,11 @@ def swiglu_init(gen: torch.Generator, d: int, d_ff: int, dtype) -> dict:
 
 
 def swiglu(p, x: torch.Tensor) -> torch.Tensor:
+    x = batch_only(x)
     h = F.silu(x @ p["w_gate"]) * (x @ p["w_up"])
-    return h @ p["w_down"]
+    # [B, S, f], or [T, f] for the moe's shared expert on its tokens
+    h = shard(h, "batch", *([None] * (h.ndim - 2)), "model")
+    return batch_only(h @ p["w_down"])
 
 
 def gelu_mlp_init(gen: torch.Generator, d: int, d_ff: int, dtype) -> dict:
@@ -256,8 +373,10 @@ def gelu_mlp_init(gen: torch.Generator, d: int, d_ff: int, dtype) -> dict:
 
 def gelu_mlp(p, x: torch.Tensor) -> torch.Tensor:
     # jax.nn.gelu's default is the tanh approximation.
+    x = batch_only(x)
     h = F.gelu(x @ p["w_up"] + p["b_up"], approximate="tanh")
-    return h @ p["w_down"] + p["b_down"]
+    h = shard(h, "batch", None, "model")
+    return batch_only(h @ p["w_down"]) + p["b_down"]
 
 
 # ------------------------------------------------------------ embeddings --
@@ -266,7 +385,36 @@ def embedding_init(gen: torch.Generator, vocab: int, d: int, dtype) -> dict:
 
 
 def embed(p, tokens: torch.Tensor) -> torch.Tensor:
-    return p["table"][tokens]
+    table = p["table"]
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(table, DTensor):
+        return shard(_lookup_per_rank(table, tokens), "batch", None, None)
+    return shard(table[tokens], "batch", None, None)
+
+
+def _lookup_per_rank(table, tokens):
+    """The embedding lookup under a mesh: each rank looks its own tokens
+    up in the whole table (gathered), and the table's gradient is the sum
+    over the ranks the tokens are split across (DTensor's rule for the
+    lookup's backward, an accumulating index write, is not carried by
+    every torch version)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = table.device_mesh
+    if not isinstance(tokens, DTensor):
+        tokens = DTensor.from_local(tokens, mesh,
+                                    [Replicate()] * mesh.ndim,
+                                    run_check=False)
+    tok = tuple(tokens.placements)
+    whole = (Replicate(),) * mesh.ndim
+    summed = tuple(Partial() if isinstance(pl, Shard) else Replicate()
+                   for pl in tok)
+    return local_map(lambda t, i: t[i], out_placements=(tok,),
+                     in_placements=(whole, tok),
+                     in_grad_placements=(summed, tok), device_mesh=mesh,
+                     redistribute_inputs=True)(table, tokens)
 
 
 def unembed_init(gen: torch.Generator, d: int, vocab: int, dtype) -> dict:
@@ -274,4 +422,4 @@ def unembed_init(gen: torch.Generator, d: int, vocab: int, dtype) -> dict:
 
 
 def unembed(p, x: torch.Tensor) -> torch.Tensor:
-    return x @ p["w"]
+    return shard(batch_only(x) @ p["w"], "batch", None, "model")

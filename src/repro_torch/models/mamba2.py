@@ -18,6 +18,7 @@ from __future__ import annotations
 import torch
 from torch.nn import functional as F
 
+from repro_torch.launch.meshctx import shard
 from repro_torch.models import layers as L
 
 CONV_WIDTH = 4
@@ -87,6 +88,7 @@ def _gated_norm_out(p, y: torch.Tensor, z: torch.Tensor,
 def mamba2_forward(p, cfg, x: torch.Tensor) -> torch.Tensor:
     """The full-sequence path. x ``[B, S, d]`` → ``[B, S, d]``; S a
     multiple of ``min(CHUNK, S)``."""
+    x = L.batch_only(x)
     b, s, _ = x.shape
     d_inner, n, p_dim, h = _dims(cfg)
     q = min(CHUNK, s)
@@ -131,7 +133,8 @@ def mamba2_forward(p, cfg, x: torch.Tensor) -> torch.Tensor:
         ys.append(y_intra + y_inter)
     y = torch.stack(ys, dim=1).reshape(b, s, h, p_dim)
     y = y + xh.to(f32) * p["d_skip"][None, None, :, None]
-    return _gated_norm_out(p, y.reshape(b, s, d_inner), z, x.dtype)
+    return shard(_gated_norm_out(p, y.reshape(b, s, d_inner), z, x.dtype),
+                 "batch", None, None)
 
 
 def mamba2_init_state(cfg, batch: int, dtype=torch.float32,

@@ -4,6 +4,7 @@
     init_params(cfg, seed, device)            → params (a ``Params`` module)
     forward(cfg, params, batch)               → (logits, aux_loss)
     loss_fn(cfg, params, batch)               → (loss, metrics)   [weighted]
+    cache_specs(cfg, B, S)                    → the cache as meta tensors
     init_cache(cfg, B, S, device)             → decode cache dict
     build_encdec_cache(cfg, params, frames, S) → encdec cache, cross K/V set
     decode_step(cfg, params, cache, tok, pos) → (logits, cache)
@@ -17,7 +18,11 @@ match the reference's, not their values; carried weights
 numbers. Leaves the reference keeps in f32 inside a bf16 model (the moe
 router, mamba2's ``a_log``/``dt_bias``/``d_skip``, rwkv6's ``w0`` and
 ``u_bonus``, the hybrid's SSM state and the ssm family's WKV state) are
-f32 here too. The ApproxIoT data plane enters through ``loss_fn``:
+f32 here too. Under a model mesh (``launch.meshctx.use_mesh``, DTensor
+parameters and batches) the same code runs sharded: the residual stream
+between blocks carries the reference's sequence-parallel constraint, and
+the loss gathers the vocabulary before its label lookup. The ApproxIoT
+data plane enters through ``loss_fn``:
 per-example stratum weights from the hierarchical sampler make the loss
 an unbiased linear query over the full stream.
 """
@@ -27,6 +32,7 @@ import torch
 from torch.nn import functional as F
 
 from repro_torch.device import resolve_device
+from repro_torch.launch.meshctx import shard
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M2
 from repro_torch.models import moe as MOE
@@ -98,9 +104,17 @@ def _layer_init(cfg, gen: torch.Generator) -> dict:
 def init_params(cfg, seed: int = 0, device="cuda") -> Params:
     """Random weights from ``torch.Generator().manual_seed(seed)``, drawn
     on the CPU a layer at a time, each layer moved to ``device`` (CUDA
-    unless asked otherwise) as soon as it is drawn."""
+    unless asked otherwise) as soon as it is drawn. On ``"meta"`` the
+    leaves have their shapes and types and nothing is drawn (the dry
+    run's abstract parameters)."""
     dev = resolve_device(device)
-    gen = torch.Generator().manual_seed(seed)
+    if dev.type == "meta":
+        with torch.device("meta"):
+            return _init_params(cfg, None, dev)
+    return _init_params(cfg, torch.Generator().manual_seed(seed), dev)
+
+
+def _init_params(cfg, gen, dev) -> Params:
     dt = cfg.param_dtype
 
     def placed(tree: dict) -> Params:
@@ -128,21 +142,28 @@ def init_params(cfg, seed: int = 0, device="cuda") -> Params:
 
 
 # ---------------------------------------------------------------- forward --
+def _sp(t: torch.Tensor) -> torch.Tensor:
+    """The sequence-parallel residual (Megatron-SP) between blocks:
+    ``[batch, model(seq), -]``, as in the reference."""
+    return shard(t, "batch", "model", None)
+
+
 def _dense_stack(cfg, layers, x: torch.Tensor, positions: torch.Tensor, *,
                  moe: bool = False):
     norm = _norm(cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    x = _sp(x)
     for lp in layers:
         h = norm(lp["ln1"], x)
-        x = x + L.attention(lp["attn"], cfg, h, positions,
-                            attn_impl=cfg.attention_impl)
+        x = _sp(x + L.attention(lp["attn"], cfg, h, positions,
+                                attn_impl=cfg.attention_impl))
         h = norm(lp["ln2"], x)
         if moe:
             y, a = MOE.moe_apply(lp["moe"], cfg, h,
                                  capacity_factor=cfg.capacity_factor)
-            x, aux = x + y, aux + a
+            x, aux = _sp(x + y), aux + a
         else:
-            x = x + L.swiglu(lp["mlp"], h)
+            x = _sp(x + L.swiglu(lp["mlp"], h))
     return x, aux
 
 
@@ -206,21 +227,23 @@ def _ssm_stack(cfg, params, x: torch.Tensor) -> torch.Tensor:
     zero_shift = torch.zeros((b, d), dtype=x.dtype, device=x.device)
     zero_state = torch.zeros((b, h, cfg.ssm_head_dim, cfg.ssm_head_dim),
                              dtype=torch.float32, device=x.device)
+    x = _sp(x)
     for lp in params["layers"]:
         y, _, _ = R6.rwkv6_time_mix(lp["tm_cm"], cfg,
                                     L.layernorm(lp["ln1"], x), zero_shift,
                                     zero_state)
-        x = x + y
+        x = _sp(x + y)
         y, _ = R6.rwkv6_channel_mix(lp["tm_cm"], cfg,
                                     L.layernorm(lp["ln2"], x), zero_shift)
-        x = x + y
+        x = _sp(x + y)
     return x
 
 
 def _head(cfg, params, x: torch.Tensor) -> torch.Tensor:
     x = _norm(cfg)(params["final_norm"], x)
     if cfg.tie_embeddings:
-        return x @ params["embed"]["table"].T
+        return shard(L.batch_only(x) @ params["embed"]["table"].T,
+                     "batch", None, "model")
     return L.unembed(params["unembed"], x)
 
 
@@ -266,6 +289,9 @@ def loss_fn(cfg, params: Params, batch: dict):
                          dtype=labels.dtype, device=labels.device)
         labels = torch.cat([pad, labels], dim=1)
     mask = (labels >= 0).to(torch.float32)
+    # the vocab gathered over "model" before the label lookup, which
+    # DTensor would otherwise run with the batch gathered too
+    logits = shard(logits, "batch", None, None)
     logp = F.log_softmax(logits.to(torch.float32), dim=-1)
     ll = torch.gather(logp, -1,
                       torch.clamp(labels, min=0).long()[..., None])[..., 0]
@@ -309,6 +335,12 @@ def build_encdec_cache(cfg, params: Params, frames: torch.Tensor,
 
 
 # ----------------------------------------------------------------- decode --
+def cache_specs(cfg, batch: int, seq: int) -> dict:
+    """The decode cache as ``meta`` tensors: ``init_cache``'s shapes and
+    dtypes, no storage."""
+    return init_cache(cfg, batch, seq, device="meta")
+
+
 def init_cache(cfg, batch: int, seq: int, device="cuda") -> dict:
     """The family's zero decode cache: K/V ``[L, B, Hkv, S, hd]`` in the
     weights' type (encdec adds the cross K/V; the hybrid's are one per

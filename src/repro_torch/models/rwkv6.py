@@ -23,6 +23,7 @@ from __future__ import annotations
 import torch
 from torch.nn import functional as F
 
+from repro_torch.launch.meshctx import shard
 from repro_torch.models import layers as L
 
 CHUNK = 64
@@ -106,6 +107,7 @@ def rwkv6_time_mix(p, cfg, x: torch.Tensor, shift_last: torch.Tensor,
                    state0: torch.Tensor):
     """x ``[B, S, d]``; state0 ``[B, H, K, V]`` f32; S a multiple of
     ``min(CHUNK, S)``. Returns ``(y, shift_out, stateN)``."""
+    x = L.batch_only(x)
     b, s, d = x.shape
     hd = cfg.ssm_head_dim
     h = d // hd
@@ -129,7 +131,11 @@ def rwkv6_time_mix(p, cfg, x: torch.Tensor, shift_last: torch.Tensor,
     state = state0
     ys = []
     for c in range(nc):
-        r_c, k_c, v_c, lw_c = rh[:, c], kh[:, c], vh[:, c], lw[:, c]
+        # Heads shard over TP; the [B,H,K,V] chunk state stays
+        # head-sharded too, as in the reference.
+        r_c, k_c, v_c, lw_c = (shard(t[:, c], "batch", None, "model", None)
+                               for t in (rh, kh, vh, lw))
+        state = shard(state, "batch", "model", None, None)
         e_inc = torch.cumsum(lw_c, dim=1)          # inclusive Σ_{τ≤t}
         e_exc = e_inc - lw_c                       # exclusive Σ_{τ<t}
         e_tot = e_inc[:, -1:, :, :]                # [B,1,H,K]
@@ -147,15 +153,18 @@ def rwkv6_time_mix(p, cfg, x: torch.Tensor, shift_last: torch.Tensor,
         state = torch.exp(e_tot[:, 0])[..., None] * state + ds
         ys.append(y_intra + y_inter + y_bonus)
     y = torch.stack(ys, dim=1).reshape(b, s, d)
-    return _group_norm_out(p, y, g, h, hd, x.dtype), x[:, -1, :], state
+    return (shard(_group_norm_out(p, y, g, h, hd, x.dtype), "batch", None,
+                  None), x[:, -1, :], state)
 
 
 def rwkv6_channel_mix(p, cfg, x: torch.Tensor, shift_last: torch.Tensor):
+    x = L.batch_only(x)
     xs = _token_shift(x, shift_last)
     xk = _mix(x, xs, p["cm_mu"])
-    kk = torch.square(torch.relu(xk @ p["cm_k"]))
+    kk = shard(torch.square(torch.relu(xk @ p["cm_k"])), "batch", None,
+               "model")
     r = torch.sigmoid(x @ p["cm_r"])
-    return r * (kk @ p["cm_v"]), x[:, -1, :]
+    return shard(r * (kk @ p["cm_v"]), "batch", None, None), x[:, -1, :]
 
 
 def rwkv6_init_state(cfg, batch: int, dtype=torch.float32,

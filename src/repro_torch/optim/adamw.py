@@ -9,6 +9,14 @@ in f32, applies weight decay to every leaf, and casts the new master
 back to each leaf's dtype. ``update`` writes the new values into the
 given parameter and state tensors (the reference donates them and
 returns new ones) and returns them; nothing waits for the device.
+
+Sharded (DTensor parameters, under ``launch.meshctx.use_mesh``): each
+gradient is first reduced to its parameter's placement (a reduce-scatter
+over "data" for the FSDP dims, an all-reduce where the parameter is
+replicated), the global norm is taken over the whole tensors, and
+``m``, ``v`` and ``master`` stay sharded as their parameter
+(``init`` mirrors each leaf's placement; ``step`` is replicated, as
+``launch.sharding.opt_state_specs`` says).
 """
 from __future__ import annotations
 
@@ -70,10 +78,8 @@ def init(params: Params, device="cuda") -> dict:
                              f", not {dev}; pass device={t.device.type!r}")
     f32 = torch.float32
     return {
-        "m": _mirror(params, lambda p: torch.zeros(p.shape, dtype=f32,
-                                                   device=dev)),
-        "v": _mirror(params, lambda p: torch.zeros(p.shape, dtype=f32,
-                                                   device=dev)),
+        "m": _mirror(params, lambda p: torch.zeros_like(p, dtype=f32)),
+        "v": _mirror(params, lambda p: torch.zeros_like(p, dtype=f32)),
         "master": _mirror(params, lambda p: p.detach().to(f32, copy=True)),
         "step": torch.zeros((), dtype=torch.int32, device=dev),
     }
@@ -84,10 +90,21 @@ def global_norm(tensors) -> torch.Tensor:
                           for t in tensors))
 
 
+def _placed_as(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """A DTensor gradient reduced and laid out as its parameter."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(g, DTensor) and tuple(g.placements) != tuple(p.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
+
+
 @torch.no_grad()
 def update(cfg: AdamWConfig, grads, state: dict, params: Params):
     """``grads``: one per tensor of ``params.parameters()``, in its order
     → ``(params, state, {"grad_norm", "lr"})``."""
+    grads = [_placed_as(g, p) for g, p in zip(grads, params.parameters(),
+                                              strict=True)]
     gnorm = global_norm(grads)
     scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9),
                         max=1.0)

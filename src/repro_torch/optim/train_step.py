@@ -5,14 +5,24 @@ weighted loss (``model.loss_fn``), its gradients by autograd (in each
 parameter's dtype), then ``adamw.update``. The flash kernel has no
 backward, in either package: training runs ``attention_impl="xla"``,
 and ``"pallas"`` under autograd raises. Prefill and decode run under
-``torch.inference_mode``.
+``torch.inference_mode``, or under a model mesh ``torch.no_grad`` (DTensor
+takes composite operations such as ``einsum`` decomposed, which inference
+mode does not do for it). The same steps run sharded: called under
+``launch.meshctx.use_mesh`` on trees that ``launch.sharding.distribute``
+placed.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.launch.meshctx import current_mesh
 from repro_torch.models import model as M
 from repro_torch.optim import adamw
+
+
+def _no_autograd():
+    return torch.no_grad() if current_mesh() is not None else \
+        torch.inference_mode()
 
 
 def make_train_step(cfg, opt_cfg: adamw.AdamWConfig):
@@ -47,7 +57,7 @@ def make_prefill_step(cfg):
     """(params, batch) → logits — inference prefill, no cache output."""
 
     def step(params, batch):
-        with torch.inference_mode():
+        with _no_autograd():
             logits, _ = M.forward(cfg, params, batch)
         return logits
 
@@ -59,7 +69,7 @@ def make_decode_step(cfg):
     updated in place."""
 
     def step(params, cache, token, pos):
-        with torch.inference_mode():
+        with _no_autograd():
             return M.decode_step(cfg, params, cache, token, pos)
 
     return step

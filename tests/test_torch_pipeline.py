@@ -256,16 +256,20 @@ def test_port_never_imports_jax_or_the_reference():
                 "models/model.py", "models/layers.py",
                 "kernels/flash_attention/ops.py", "optim/train_step.py",
                 "configs/registry.py", "configs/smollm_135m.py",
-                "api/spmd.py", "launch/mesh.py", "launch/sharding.py"):
+                "api/spmd.py", "launch/mesh.py", "launch/sharding.py",
+                "launch/meshctx.py", "launch/hlocost.py",
+                "launch/analysis.py", "launch/dryrun.py", "models/moe.py"):
         assert REPO / "src" / "repro_torch" / mod in files, mod
     files += [REPO / "chip_smoke.py", REPO / "examples" / "quickstart_torch.py",
               REPO / "examples" / "taxi_analytics_torch.py",
               # what the mesh tests' rank processes import
-              REPO / "tests" / "torch_spmd_ranks.py"]
+              REPO / "tests" / "torch_spmd_ranks.py",
+              REPO / "tests" / "torch_model_mesh_ranks.py"]
     tools = sorted((REPO / "tools").glob("*.py"))
     for tool in ("flash_planted_faults.py", "flash_rounding_check.py",
                  "fused_tick_phases.py", "kernel_ab.py", "fadd_chain.py",
-                 "launch_floor.py"):
+                 "launch_floor.py", "gloo_cuda_collectives.py",
+                 "model_path_ab.py"):
         assert REPO / "tools" / tool in tools, tool
     files += tools
     assert len(files) > 20
@@ -287,7 +291,9 @@ def test_port_never_imports_jax_or_the_reference():
             "repro_torch.kernels.flash_attention.ops, repro_torch.serve, "
             "repro_torch.checkpoint, repro_torch.runtime.straggler, "
             "repro_torch.configs.approxiot_paper, repro_torch.api.spmd, "
-            "repro_torch.launch.mesh, repro_torch.launch.sharding\n"
+            "repro_torch.launch.mesh, repro_torch.launch.sharding, "
+            "repro_torch.launch.meshctx, repro_torch.launch.hlocost, "
+            "repro_torch.launch.analysis, repro_torch.launch.dryrun\n"
             "from repro_torch.configs import registry\n"
             "[registry.get_config(n) for n in registry.ARCH_NAMES]\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
