@@ -1090,6 +1090,8 @@ SMOLLM_ATTN = (8, 9, 3, 2048, 64)
 QWEN3_ATTN = (1, 32, 8, 4096, 128)
 # The bf16 (tensor-core) kernel over S from one short block to 16 tiles,
 # each head dim and query heads per kv head 1, 3 and 4.
+# The bf16 kernel on the tensor cores' worst case, each head dim, GQA 2.
+FLASH_EDGE_SHAPES = tuple((1, 4, 2, 512, d) for d in (32, 64, 128))
 FLASH_BF16_GRID = tuple((1, 2 * g, 2, s, d) for s in (16, 64, 128, 256, 2048)
                         for d in (32, 64, 128) for g in (1, 3, 4))
 # The earlier designs' kernel time over the library call's at the same
@@ -1142,6 +1144,27 @@ def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
     """Spacing of bf16 numbers (8 significant bits) at |x|."""
     e = torch.floor(torch.log2(x.abs().clamp_min(2.0 ** -126)))
     return torch.exp2(e - 7)
+
+
+def flash_edge_inputs(shape, seed, dev):
+    """bf16 q, k, v on which the tensor cores' q.k errs the most
+    (``tools/wgmma_error_probe.py``'s edge kinds), with every key's
+    score alike but for its small terms: a k16 step of q is one ±1 and
+    fifteen 1s, of k one 1 and fifteen equal terms just below a power of
+    two, ``2^-j (1 - 2^-8)`` with j = 16 .. 28 drawn per key and step, so
+    the small terms that the tensor cores' alignment truncates decide
+    each row's max."""
+    b, hq, hkv, s, d = shape
+    g = torch.Generator().manual_seed(seed)
+    q = torch.ones(b, hq, s, d)
+    q[..., ::16] = (2 * torch.randint(0, 2, (b, hq, s, d // 16),
+                                      generator=g) - 1).float()
+    j = torch.randint(16, 29, (b, hkv, s, d // 16, 1), generator=g)
+    k = ((1 - 2.0 ** -8) * torch.exp2(-j.float())).expand(
+        b, hkv, s, d // 16, 16).reshape(b, hkv, s, d).clone()
+    k[..., ::16] = 1.0
+    v = torch.randn((b, hkv, s, d), generator=g)
+    return [t.to(torch.bfloat16).to(dev) for t in (q, k, v)]
 
 
 def flash_agrees(got: torch.Tensor, want: torch.Tensor) -> bool:
@@ -1213,6 +1236,38 @@ def check_flash(dev) -> float:
     print(f"flash_attention bf16 over (B, Hq, Hkv, S, D) = "
           f"{FLASH_BF16_GRID}: within one bf16 ulp of the plain version and "
           f"{ORACLE_TOL[torch.bfloat16]} of the oracle")
+    return max(worst, check_flash_edges(dev))
+
+
+def check_flash_edges(dev) -> float:
+    """The bf16 kernel on ``flash_edge_inputs`` at each head dim, against
+    its plain version (one bf16 ulp) and the S×S oracle. Returns the
+    largest absolute difference from the plain version."""
+    from repro_torch.kernels.flash_attention import ops as fa, ref as fa_ref
+
+    worst = 0.0
+    for i, shape in enumerate(FLASH_EDGE_SHAPES):
+        q, k, v = flash_edge_inputs(shape, 40 + i, dev)
+        plain = fa_ref.flash_attention(q, k, v)
+        card = fa.flash_attention(q, k, v)
+        oracle = fa_ref.attention(q, k, v)
+        torch.cuda.synchronize()
+        tol = ORACLE_TOL[torch.bfloat16]
+        if not flash_agrees(card, plain):
+            fail(f"flash_attention differs from its plain version on the "
+                 f"tensor cores' worst case at {shape}: max abs "
+                 f"{max_abs(card, plain)}")
+        if not torch.allclose(card.float(), oracle.float(), rtol=tol,
+                              atol=tol):
+            fail(f"flash_attention differs from the S×S oracle on the "
+                 f"tensor cores' worst case at {shape} beyond {tol}: max "
+                 f"abs {max_abs(card, oracle)}")
+        worst = max(worst, max_abs(card, plain))
+        del q, k, v, plain, card, oracle
+    print(f"flash_attention bf16 on the tensor cores' worst case "
+          f"(flash_edge_inputs) at {FLASH_EDGE_SHAPES}: within one bf16 ulp "
+          f"of the plain version (max abs {worst:.3e}) and {tol} of the "
+          f"oracle")
     return worst
 
 
@@ -2758,28 +2813,155 @@ def sass_counts(lib: Path) -> None:
 # one-rank card steps from the same weights and batch (each step's loss
 # and grad_norm within TRAIN_RTOL; each gathered leaf after the first
 # step as train_close holds a first step's), then the
-# bf16 model takes MODEL_MESH_BF16_STEPS timed steps after a warm-up. And
-# qwen2-moe-a2.7b at full width, 2 layers, f32, B 4, S 256: one sharded
-# forward (60 experts over model 2: expert-parallel), every rank's kept
+# bf16 model takes MODEL_MESH_BF16_STEPS timed steps after a warm-up. The
+# sharded prefill: the bf16 model, attention_impl="pallas", B 8, S 2048
+# (SmolLM-135M's 3 kv heads over model 2: K/V repeated, the 9 heads padded
+# to 10, each rank's flash launch (4, 5, 5, 2048, 64)): a counted forward,
+# MODEL_MESH_PREFILL_FORWARDS timed ones and the sharded xla forward; every
+# rank's flash launches layers x forwards; layer 0's kernel output on each
+# rank bitwise the one-rank kernel's on the same (batch, head) block; the
+# logits within the bf16 prefill limits (PREFILL_BF16_AGREE,
+# PREFILL_BF16_REL) of the one-rank pallas prefill and of the sharded xla
+# prefill. And qwen2-moe-a2.7b at full width, 2 layers, f32, B 4, S 256,
+# attention_impl="pallas": one sharded forward (60 experts over model 2:
+# expert-parallel; 16 kv heads over model 2: each rank's flash launch
+# grouped, (2, 8, 8, 256, 128) on the CUDA-core kernel), every rank's kept
 # set bitwise its group's rows of the one-rank card forward in G = 2
 # groups (a stand-in mesh of the same sizes), the logits within
-# MODEL_MESH_MOE_REL of the largest.
+# MODEL_MESH_MOE_REL of the largest, the flash launches and the attention
+# core checked as the prefill's.
 MODEL_MESH = (2, 2)
 MODEL_MESH_TRAIN = (8, 256)
 MODEL_MESH_LAYERS = 8
 MODEL_MESH_F32_STEPS = 2
 MODEL_MESH_BF16_STEPS = 3
+MODEL_MESH_PREFILL = (8, 2048)   # B, S
+MODEL_MESH_PREFILL_FORWARDS = 2
 MODEL_MESH_MOE = (4, 256, 2)     # B, S, layers
 MODEL_MESH_MOE_REL = 1e-4
 
 
 class MeshSizes:
     """A stand-in mesh of axis names and sizes: under ``use_mesh`` the
-    models take their mesh branches (moe's groups, attention's einsum)
-    on plain tensors, with no rank."""
+    models take their mesh branches (moe's groups, attention's head
+    layout) on plain tensors, with no rank."""
 
     axis_names = ("data", "model")
     shape = dict(zip(("data", "model"), MODEL_MESH))
+
+
+class FirstFlash:
+    """Within the block, the flash wrapper as the models reach it
+    (``layers.flash_ops.flash_attention``) keeps its first call's q, k,
+    v and output on the host: one layer's attention core on this rank."""
+
+    def __enter__(self):
+        from repro_torch.models import layers as L
+
+        self.core, self._mod = None, L.flash_ops
+        real = self._real = L.flash_ops.flash_attention
+
+        def spy(q, k, v):
+            o = real(q, k, v)
+            if self.core is None:
+                self.core = tuple(t.detach().cpu() for t in (q, k, v, o))
+            return o
+
+        L.flash_ops.flash_attention = spy
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.flash_attention = self._real
+        return False
+
+
+def vocab_whole(logits):
+    """This rank's batch shard of sharded logits, the vocabulary gathered
+    over "model" (as the loss gathers it), as a plain tensor."""
+    from repro_torch.launch.meshctx import shard
+
+    return shard(logits, "batch", None, None).to_local()
+
+
+def logits_close(got, want) -> dict:
+    """max |got − want|, max |want| and the share of tokens whose argmax
+    agrees."""
+    return dict(max_abs=max_abs(got, want),
+                scale=float(want.abs().max()),
+                agree=float((got.argmax(-1) == want.argmax(-1))
+                            .float().mean()))
+
+
+def mesh_prefill(mesh, dev, ledger, coords) -> dict:
+    """One rank's part of the sharded pallas prefill (see MODEL_MESH): its
+    time, launches, layer 0's core, collectives, and its batch shard of
+    the logits against the one-rank pallas prefill's and the sharded xla
+    prefill's."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import registry
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.launch import sharding as SH
+    from repro_torch.launch.meshctx import use_mesh
+    from repro_torch.models import model as M
+    from repro_torch.optim import train_step as T
+
+    # the sharded prefill through the flash kernel: a short warm-up, the
+    # counted forward (layer 0's core kept), timed forwards with their
+    # collectives, the sharded xla forward; then every rank's batch shard
+    # of the logits against the one-rank pallas prefill's
+    pb, ps = MODEL_MESH_PREFILL
+    cfg = dataclasses.replace(registry.get_config("smollm-135m"),
+                              num_layers=MODEL_MESH_LAYERS,
+                              attention_impl="pallas")
+    toks = torch.randint(0, cfg.vocab_size, (pb, ps),
+                         generator=torch.Generator().manual_seed(34)).to(dev)
+    params = M.init_params(cfg, seed=0, device=dev)
+    SH.distribute(params, SH.param_specs(params, mesh), mesh)
+
+    def placed_tokens(t):
+        return SH.distribute({"tokens": t}, SH.batch_specs({"tokens": t},
+                                                           mesh), mesh)
+
+    pallas = T.make_prefill_step(cfg)
+    xla = T.make_prefill_step(dataclasses.replace(cfg, attention_impl="xla"))
+    batch = placed_tokens(toks)
+    n_fwd = 1 + MODEL_MESH_PREFILL_FORWARDS
+    with use_mesh(mesh):
+        pallas(params, placed_tokens(toks[:, :128]))
+        torch.cuda.synchronize(dev)
+        dist.barrier()
+        before = LAUNCHES["flash_attention"]
+        with FirstFlash() as first:
+            logits = pallas(params, batch)
+        torch.cuda.synchronize(dev)
+        dist.barrier()
+        ledger.reset()
+        t0 = time.perf_counter()
+        for _ in range(MODEL_MESH_PREFILL_FORWARDS):
+            pallas(params, batch)
+        torch.cuda.synchronize(dev)
+        secs = time.perf_counter() - t0
+        coll = ledger.totals()
+        launches = LAUNCHES["flash_attention"] - before
+        xlogits = xla(params, batch)
+        got, xgot = vocab_whole(logits), vocab_whole(xlogits)
+    del logits, xlogits
+    plain = M.init_params(cfg, seed=0, device=dev)
+    rows = slice(coords[0] * (pb // MODEL_MESH[0]),
+                 (coords[0] + 1) * (pb // MODEL_MESH[0]))
+    want = pallas(plain, {"tokens": toks})[rows]
+    if tuple(got.shape) != tuple(want.shape) or not bool(
+            torch.isfinite(got).all()):
+        fail(f"model mesh prefill: rank {coords} logits {tuple(got.shape)} "
+             f"(finite: {bool(torch.isfinite(got).all())}), expected "
+             f"{tuple(want.shape)}")
+    return dict(secs=secs, launches=launches, forwards=n_fwd,
+                core=first.core, collectives=coll,
+                one_rank=logits_close(got, want),
+                xla=logits_close(got, xgot))
 
 
 def model_mesh_rank(job: dict) -> dict:
@@ -2791,6 +2973,7 @@ def model_mesh_rank(job: dict) -> dict:
     import torch.distributed as dist
 
     from repro_torch.configs import registry
+    from repro_torch.kernels import LAUNCHES
     from repro_torch.launch import sharding as SH
     from repro_torch.launch.mesh import make_model_mesh, model_mesh_ledger
     from repro_torch.launch.meshctx import use_mesh
@@ -2899,10 +3082,18 @@ def model_mesh_rank(job: dict) -> dict:
     torch.cuda.empty_cache()
     dist.barrier()
 
-    # the moe: one sharded f32 forward, every rank's kept sets recorded
+    t0 = time.perf_counter()
+    out["prefill"] = mesh_prefill(mesh, dev, ledger, out["coords"])
+    out["prefill"]["part_s"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    dist.barrier()
+
+    # the moe: one sharded f32 forward through the flash kernel, every
+    # rank's kept sets recorded
     mb, ms, layers = MODEL_MESH_MOE
     cfg = dataclasses.replace(registry.get_config("qwen2-moe-a2.7b"),
-                              num_layers=layers, param_dtype=torch.float32)
+                              num_layers=layers, param_dtype=torch.float32,
+                              attention_impl="pallas")
     batch = family_batch(cfg, mb, ms, 0, torch.Generator().manual_seed(33),
                          dev)
     params = M.init_params(cfg, seed=0, device=dev)
@@ -2916,13 +3107,16 @@ def model_mesh_rank(job: dict) -> dict:
         return got
 
     MOE.select = spy
+    before = LAUNCHES["flash_attention"]
     try:
-        with use_mesh(mesh):
+        with use_mesh(mesh), FirstFlash() as first:
             logits = T.make_prefill_step(cfg)(params, placed_batch)
         logits = SH.gather_tensor(logits)
     finally:
         MOE.select = real
     out["moe_kept"] = seen
+    out["moe_flash"] = dict(launches=LAUNCHES["flash_attention"] - before,
+                            core=first.core)
     if rank == 0:
         plain = M.init_params(cfg, seed=0, device=dev)
         want_seen = []
@@ -2944,6 +3138,128 @@ def model_mesh_rank(job: dict) -> dict:
                                  scale=scale)
     dist.barrier()
     return out
+
+
+def whole_from_blocks(ranks, key: str, i: int) -> torch.Tensor:
+    """The whole ``[B, H, S, D]`` tensor from every rank's block of it
+    (``r[key]["core"][i]``): batch blocks by the data coordinate, head
+    blocks by the model coordinate."""
+    blocks = {tuple(r["coords"]): r[key]["core"][i] for r in ranks}
+    return torch.cat([torch.cat([blocks[(d, m)]
+                                 for m in range(MODEL_MESH[1])], dim=1)
+                      for d in range(MODEL_MESH[0])], dim=0)
+
+
+def check_mesh_core(ranks, key: str, arch: str, what: str, layers: int,
+                    forwards: int, card: str, time_it: bool = True) -> None:
+    """Every rank launched the flash kernel ``layers × forwards`` times;
+    layer 0's kernel output on each rank is bitwise the one-rank kernel's
+    on the same (batch, head) block (in bf16 else within one bf16 ulp,
+    and said so), the padded heads' output zero; with ``time_it``, each
+    rank's launch timed at its shape beside its bound."""
+    from repro_torch.configs import registry
+    from repro_torch.kernels.flash_attention import ops as fa
+
+    cfg = registry.get_config(arch)
+    h, hkv, n_model = cfg.num_heads, cfg.num_kv_heads, MODEL_MESH[1]
+    for r in ranks:
+        if r[key]["launches"] != layers * forwards:
+            fail(f"model mesh {what}: rank {r['rank']} launched "
+                 f"flash_attention {r[key]['launches']} times, expected "
+                 f"{layers} layers x {forwards} forwards")
+    dev = torch.device("cuda", 0)
+    q, k, v = (whole_from_blocks(ranks, key, i).to(dev) for i in range(3))
+    hl = q.shape[1] // n_model           # a rank's query heads
+    if hkv % n_model:                    # repeated, padded: back to GQA
+        group = h // hkv
+        for t in (q, k, v):
+            if bool(t[:, h:].any()):
+                fail(f"model mesh {what}: padded heads are not zero")
+        if not (torch.equal(k[:, :h], k[:, :h:group].repeat_interleave(
+                group, 1)) and torch.equal(v[:, :h], v[:, :h:group]
+                                           .repeat_interleave(group, 1))):
+            fail(f"model mesh {what}: the ranks' K/V are not the kv heads "
+                 f"repeated")
+        q, k, v = q[:, :h], k[:, :h:group], v[:, :h:group]
+    one = fa.flash_attention(q, k, v)
+    bl = q.shape[0] // MODEL_MESH[0]
+    bitwise, ulp = True, True
+    for r in ranks:
+        d, m = r["coords"]
+        o = r[key]["core"][3]
+        real = min(hl, max(h - m * hl, 0))
+        want = one[d * bl:(d + 1) * bl, m * hl:m * hl + real]
+        if bool(o[:, real:].any()):
+            fail(f"model mesh {what}: rank {r['rank']}'s padded heads' "
+                 f"output is not zero")
+        bitwise &= same_bits(o[:, :real], want)
+        ulp &= flash_agrees(o[:, :real].to(dev), want)
+    shape = tuple(r[key]["core"][0].shape)
+    print(f"model mesh {what}: every rank {layers * forwards} flash "
+          f"launches ({layers} layers x {forwards} forwards), each at "
+          f"q {shape}, k {tuple(ranks[0][key]['core'][1].shape)}; layer "
+          f"0's core on every rank bitwise the one-rank kernel's at "
+          f"{tuple(q.shape)} / {tuple(k.shape)} on its (batch, head) "
+          f"block: {bitwise}")
+    if not bitwise:
+        if not ulp or q.dtype != torch.bfloat16:
+            fail(f"model mesh {what}: a rank's flash output is not "
+                 f"bitwise the one-rank kernel's on its block (bf16: nor "
+                 f"within one bf16 ulp)")
+        print(f"model mesh {what}: NOT bitwise; within one bf16 ulp of the "
+              f"one-rank kernel's")
+    if not time_it:
+        return
+    b_, hq_, s_, d_ = shape
+    hkv_ = ranks[0][key]["core"][1].shape[1]
+    for r in sorted(ranks, key=lambda r: tuple(r["coords"])):
+        rq, rk, rv = (t.to(dev) for t in r[key]["core"][:3])
+        ms = device_ms(lambda: fa.flash_attention(rq, rk, rv), 10,
+                       name="flash_attention mesh rank")
+        # the bound of the rank's real heads: a padded head is no work
+        real = min(hl, max(h - r["coords"][1] * hl, 0))
+        bound = flash_bound((b_, real, real if hkv % n_model else hkv_, s_,
+                             d_))
+        print(f"model mesh {what}: rank {r['rank']} {tuple(r['coords'])} "
+              f"flash_attention at its shape {shape}: device {ms:.4f} "
+              f"ms/launch, bound of its {real} real heads {bound[0]:.4f} "
+              f"ms ({bound[1]}), {bound[0] / ms:.2%} of the bound ({card})")
+
+
+def check_mesh_prefill(ranks, card: str) -> None:
+    """The sharded pallas prefill: its launches and core
+    (``check_mesh_core``), its logits against the one-rank pallas
+    prefill's and the sharded xla prefill's within the bf16 prefill
+    limits, its time and rank 0's collectives a forward."""
+    t0 = time.perf_counter()
+    pre = [r["prefill"] for r in ranks]
+    check_mesh_core(ranks, "prefill", "smollm-135m", "SmolLM-135M bf16",
+                    MODEL_MESH_LAYERS, pre[0]["forwards"], card)
+    pb, ps = MODEL_MESH_PREFILL
+    names = {"one_rank": "the one-rank pallas", "xla": "the sharded xla"}
+    for other in ("one_rank", "xla"):
+        diff = max(p[other]["max_abs"] for p in pre)
+        scale = max(p[other]["scale"] for p in pre)
+        agree = sum(p[other]["agree"] for p in pre) / len(pre)
+        print(f"model mesh prefill: SmolLM-135M ({MODEL_MESH_LAYERS} "
+              f"layers) bf16 B {pb} S {ps}, sharded pallas against "
+              f"{names[other]} prefill: max abs {diff:.4f} (max |logit| "
+              f"{scale:.3f}), argmax agreement {agree:.4f}")
+        if agree < PREFILL_BF16_AGREE or diff > PREFILL_BF16_REL * scale:
+            fail(f"model mesh prefill: sharded pallas and {other} disagree "
+                 f"(argmax agreement {agree:.4f} < {PREFILL_BF16_AGREE} or "
+                 f"max abs {diff:.4f} > {PREFILL_BF16_REL} x {scale:.3f})")
+    n = MODEL_MESH_PREFILL_FORWARDS
+    secs, coll = pre[0]["secs"], pre[0]["collectives"]
+    print(f"model mesh prefill ({card}): {secs / n * 1e3:.1f} ms a sharded "
+          f"forward ({pb * ps / (secs / n):.4g} tokens/s, {n} forwards), "
+          f"rank 0 collectives a forward {coll['calls'] / n:.0f} calls, "
+          f"{coll['bytes'] / n / 1e6:.3f} MB, "
+          f"{coll['seconds'] / n * 1e3:.1f} ms (host copies "
+          f"{coll['host_copies'] / n:.0f}, "
+          f"{coll['host_copy_bytes'] / n / 1e6:.3f} MB)")
+    print(f"model mesh prefill: {pre[0]['part_s']:.1f} s on rank 0, "
+          f"{time.perf_counter() - t0:.1f} s of checks and timings here")
 
 
 def run_model_mesh(card: str) -> None:
@@ -2995,6 +3311,10 @@ def run_model_mesh(card: str) -> None:
           + f"; a profiled step: busy {prof['busy_ms']:.1f} of "
           f"{prof['wall_ms']:.1f} ms ({prof['busy_ms'] / prof['wall_ms']:.4f}"
           f"), {prof['events']} device events; losses {bf['losses']}")
+    check_mesh_prefill(ranks, card)
+    check_mesh_core(ranks, "moe_flash", "qwen2-moe-a2.7b",
+                    "qwen2-moe-a2.7b f32", MODEL_MESH_MOE[2], 1, card,
+                    time_it=False)
     want = r0["moe_want"]
     b, s, layers = MODEL_MESH_MOE
     tg = b * s // MODEL_MESH[0]

@@ -16,9 +16,11 @@ from repro_torch.api.spec import (BudgetSpec, PipelineSpec, SamplerSpec,
                                   SpecError, StrataSpec, TelemetrySpec,
                                   TenantSpec, TopologySpec, resolve)
 
+compile_pipeline = compile   # for call sites that shadow the builtin
+
 __all__ = [
     "PipelineSpec", "TopologySpec", "SamplerSpec", "BudgetSpec",
     "TelemetrySpec", "StrataSpec", "TenantSpec", "SpecError", "resolve",
-    "compile", "CompiledPipeline", "PipelineState", "WindowAnswers",
-    "program_cache_stats", "save_state", "restore_state",
+    "compile", "compile_pipeline", "CompiledPipeline", "PipelineState",
+    "WindowAnswers", "program_cache_stats", "save_state", "restore_state",
 ]

@@ -145,6 +145,14 @@ def _truncation_corrected_meta(slot_valid, result_y, meta: StratumMeta, seg,
                        count=torch.where(kept > 0.0, kept, meta.count))
 
 
+def apply_sample(batch: IntervalBatch, result: SampleResult) -> IntervalBatch:
+    """Forward step (Alg. 1 line 13): the upstream-bound batch in place,
+    its sampled-out slots invalid and its meta the sample's (sending is
+    masking; ``compact_sample`` packs)."""
+    return IntervalBatch(value=batch.value, stratum=batch.stratum,
+                         valid=result.selected, meta=result.meta)
+
+
 def compact_sample(batch: IntervalBatch, result: SampleResult,
                    out_capacity: int) -> IntervalBatch:
     """Pack the selected items of one node into ``out_capacity`` slots

@@ -54,9 +54,12 @@
 //   scores alone differing in their last bits, outputs land two ulps from
 //   the plain version's (the plain version with its scores summed in f64
 //   does too). So the kernel keeps a bound on how far each score may lie
-//   from the plain version's, u (sum_d (D - d) |q_d k_d| + 4 (D/16 + 1)
-//   sum_d |q_d k_d|) (the chain's roundings, and the tensor cores' sums of
-//   exact products taken to err by at most 4 ulps a k16 step). At D <= 64
+//   from the plain version's, u sum_d w_d |q_d k_d| (err_weight: the
+//   chain's roundings, and the tensor cores' k16 steps: each aligns its 16
+//   exact products and the accumulator to the largest, cuts each at 2^-25
+//   of it and truncates the sum to f32, so a step errs by less than
+//   (17 / 2 + 2) u of its terms and the accumulator; measured up to 8.94
+//   u by tools/wgmma_error_probe.py). At D <= 64
 //   the tensor cores compute it for every score as a second product,
 //   (|q| w) . |k|, with |K| tiles that the idle producer warps write; at
 //   D = 128 (no shared memory left for them) it is Cauchy-Schwarz with the
@@ -352,11 +355,22 @@ __device__ __forceinline__ float bf_hi(uint32_t w) {
   return __uint_as_float(w & 0xffff0000u);
 }
 
-// (sum x_d^2, sum (D - d) x_d^2) over row `row` of a swizzled tile.
+// The weight of a term q_d k_d in a score's error bound, in u: the D - d
+// roundings it passes through in the plain version's FMA chain, and 11
+// for each tensor-core k16 step from its own to the last (a step errs by
+// less than 10.5 u of its products and the accumulator, which holds every
+// earlier term). At most 216 at D = 128, so w x is exact in f32 for a
+// bf16 x.
 template <int D>
-__device__ __forceinline__ float2 row_norms(const unsigned char* tile,
-                                            int row) {
-  float a = 0.f, b = 0.f;
+__device__ __forceinline__ float err_weight(int d) {
+  return (float)(D - d + 11 * (D / 16 - d / 16));
+}
+
+// sum_d err_weight(d) x_d^2 over row `row` of a swizzled tile.
+template <int D>
+__device__ __forceinline__ float weighted_norm2(const unsigned char* tile,
+                                                int row) {
+  float b = 0.f;
 #pragma unroll 2
   for (int c8 = 0; c8 < D / 8; ++c8) {
     const uint4 q = tile_chunk<D>(tile, row, c8);
@@ -364,14 +378,12 @@ __device__ __forceinline__ float2 row_norms(const unsigned char* tile,
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const float x0 = bf_lo(w[e]), x1 = bf_hi(w[e]);
-      const float d = (float)(8 * c8 + 2 * e);
-      a = __fmaf_rn(x0, x0, a);
-      a = __fmaf_rn(x1, x1, a);
-      b = __fmaf_rn(((float)D - d) * x0, x0, b);   // products exact
-      b = __fmaf_rn(((float)D - d - 1.f) * x1, x1, b);
+      const int d = 8 * c8 + 2 * e;
+      b = __fmaf_rn(err_weight<D>(d) * x0, x0, b);   // products exact
+      b = __fmaf_rn(err_weight<D>(d + 1) * x1, x1, b);
     }
   }
-  return make_float2(a, b);
+  return b;
 }
 
 // The plain version's score q_row . k_col: its f32 matmul (cuBLAS) sums
@@ -554,9 +566,9 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
   unsigned char* Ks = Qs + L::kBytes;
   unsigned char* Vs = Ks + kStages * L::kBytes;
   // D <= 64: each score's error bound comes from the tensor cores, as
-  // (|q| w) . |k| over a tile Qw of |q_d| (D - d + kTc) (rounded up) and a
+  // (|q| w) . |k| over a tile Qw of |q_d| err_weight(d) (rounded up) and a
   // ring Ka of |K| tiles; at D = 128 there is no room for them, and the
-  // bound takes the K tile's largest column norms instead.
+  // bound takes the K tile's largest weighted row norm instead.
   constexpr bool kExact = D <= 64;
   unsigned char* Qw = Vs + kStages * L::kBytes;
   unsigned char* Ka = Qw + (kExact ? L::kBytes : 0);
@@ -566,8 +578,8 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
   uint64_t* v_full = k_full + kStages;
   uint64_t* empty = v_full + kStages;
   uint64_t* norm_full = empty + kStages;
-  float2* knorm = reinterpret_cast<float2*>(q_full + 32);   // [st][warp]
-  WarpScratch* scratch = reinterpret_cast<WarpScratch*>(knorm + 8);
+  float* knorm = reinterpret_cast<float*>(q_full + 32);   // [st][warp]
+  WarpScratch* scratch = reinterpret_cast<WarpScratch*>(knorm + 16);
 
   const int bh = blockIdx.x;
   const int tile = gridDim.y - 1 - blockIdx.y;   // longest tiles first
@@ -613,8 +625,8 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
       }
     } else if (pw >= 1) {
       // Warps 1-3: for the consumers' bound on their scores, each K tile
-      // with its signs cleared (D <= 64), or its largest column norms,
-      // plain and weighted. The consumers release the slot only after
+      // with its signs cleared (D <= 64), or its largest weighted row
+      // norm. The consumers release the slot only after
       // these are done, so the reads of K here end before it is refilled.
       const int lane = threadIdx.x % 32;
       for (int j = 0; j < n_blocks; ++j) {
@@ -635,19 +647,14 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
           if (lane == 0) mbar_arrive(&norm_full[st]);
           continue;
         }
-        float2 mx = make_float2(0.f, 0.f);
-        for (int c = threadIdx.x - 32; c < kTileRows; c += 32 * kNormWarps) {
-          const float2 n = row_norms<D>(Ks + st * L::kBytes, c);
-          mx = make_float2(fmaxf(mx.x, n.x), fmaxf(mx.y, n.y));
-        }
+        float mx = 0.f;
+        for (int c = threadIdx.x - 32; c < kTileRows; c += 32 * kNormWarps)
+          mx = fmaxf(mx, weighted_norm2<D>(Ks + st * L::kBytes, c));
 #pragma unroll
-        for (int d = 16; d > 0; d >>= 1) {
-          mx.x = fmaxf(mx.x, __shfl_xor_sync(kFull, mx.x, d));
-          mx.y = fmaxf(mx.y, __shfl_xor_sync(kFull, mx.y, d));
-        }
+        for (int d = 16; d > 0; d >>= 1)
+          mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, d));
         if (lane == 0) {
-          knorm[st * kNormWarps + pw - 1] =
-              make_float2(sqrtf(mx.x), sqrtf(mx.y));
+          knorm[st * kNormWarps + pw - 1] = sqrtf(mx);
           mbar_arrive(&norm_full[st]);
         }
       }
@@ -666,9 +673,6 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
   const uint32_t q_s = smem_u32(Qs) + cw * 64 * L::kRowBytes;
   WarpScratch* ws = scratch + threadIdx.x / 32 - 4;
   constexpr int kOn = L::kCols / 2;      // accumulators per n = kCols part
-  // The tensor cores' sum of 16 exact products a k16 step, added to the
-  // accumulator: taken to err by at most 4 u (D / 16 + 1) sum |q_d k_d|.
-  constexpr float kTc = 4.f * (D / 16 + 1);
 
   // m_seq is the plain version's running max of x = fl(s_seq scale),
   // exact; m is the reference the kernel's p, l and acc are taken against:
@@ -684,9 +688,9 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
   const float cL = scale * kLog2e, inv_scale = 1.f / scale;
 
   mbar_wait(q_full, 0);
-  float qn[2], qnw[2];   // norms of the thread's two query rows
+  float qnw[2];   // weighted norms of the thread's two query rows
   if constexpr (kExact) {
-    // This warp's 16 rows of Qw: |q_d| (D - d + kTc), rounded up to bf16,
+    // This warp's 16 rows of Qw: |q_d| err_weight(d), rounded up to bf16,
     // in Q's swizzled layout; the warpgroup's 64 rows are complete before
     // its first bound product.
     for (int c = lane; c < 16 * (D / 8); c += 32) {
@@ -696,12 +700,11 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
       const uint4 v = *reinterpret_cast<const uint4*>(Qs + off);
       const uint32_t w[4] = {v.x, v.y, v.z, v.w};
       uint32_t o[4];
-      const float d0 = (float)(8 * (pc ^ sw));
+      const int d0 = 8 * (pc ^ sw);
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const float lo = fabsf(bf_lo(w[e])) * ((float)D + kTc - d0 - 2 * e);
-        const float hi =
-            fabsf(bf_hi(w[e])) * ((float)D + kTc - d0 - 2 * e - 1.f);
+        const float lo = fabsf(bf_lo(w[e])) * err_weight<D>(d0 + 2 * e);
+        const float hi = fabsf(bf_hi(w[e])) * err_weight<D>(d0 + 2 * e + 1);
         const __nv_bfloat162 r2 = make_bfloat162(__float2bfloat16_ru(lo),
                                                  __float2bfloat16_ru(hi));
         o[e] = *reinterpret_cast<const uint32_t*>(&r2);
@@ -712,11 +715,8 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
     asm volatile("bar.sync %0, 128;" ::"r"(1 + cw) : "memory");
   } else {
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const float2 n = row_norms<D>(Qs, rl + 8 * r);
-      qn[r] = sqrtf(n.x);
-      qnw[r] = sqrtf(n.y);
-    }
+    for (int r = 0; r < 2; ++r)
+      qnw[r] = sqrtf(weighted_norm2<D>(Qs, rl + 8 * r));
   }
 
   for (int j = 0; j < n_blocks; ++j) {
@@ -758,19 +758,15 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
     fence_regs(s);
 
     // How far a score x = s scale may lie from the plain version's:
-    // u (sum_d (D - d) |q_d k_d| + kTc sum_d |q_d k_d|) times scale, the
-    // weights D - d counting the roundings a product passes through in the
-    // plain version's chain. At D <= 64 that is B (times 1 + 2^-16 for
-    // B's own roundings); at D = 128 Cauchy-Schwarz bounds it by
-    // |q|_w |k|_w + kTc |q| |k|, with the block's largest column norms.
-    float2 kmax = make_float2(0.f, 0.f);
+    // u sum_d err_weight(d) |q_d k_d| times scale. At D <= 64 that is B
+    // (times 1 + 2^-16 for B's own roundings); at D = 128 Cauchy-Schwarz
+    // bounds it by |q|_w |k|_w, with the block's largest weighted norm.
+    float kmax = 0.f;
     if constexpr (!kExact) {
       kmax = knorm[st * kNormWarps];
 #pragma unroll
-      for (int w = 1; w < kNormWarps; ++w) {
-        const float2 n = knorm[st * kNormWarps + w];
-        kmax = make_float2(fmaxf(kmax.x, n.x), fmaxf(kmax.y, n.y));
-      }
+      for (int w = 1; w < kNormWarps; ++w)
+        kmax = fmaxf(kmax, knorm[st * kNormWarps + w]);
     }
     const float c_err = kErr * 1.0001f * scale;
 
@@ -817,7 +813,7 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
       bm[r] = quad_max(bm[r]);
       const float err =
           kExact ? c_err * quad_max(bmax[r])
-                 : c_err * (qnw[r] * kmax.y + kTc * qn[r] * kmax.x);
+                 : c_err * qnw[r] * kmax;
       // May a score of this block, within its reach, pass m_seq? Then
       // its candidates are rescored, and p is taken against the block's
       // max, at most wm from the plain version's new one.

@@ -132,10 +132,11 @@ def stream_of(t) -> ctypes.c_void_p:
 
 def plain_only(what: str, *tensors) -> None:
     """Raise if a DTensor reaches a kernel wrapper: the kernels take one
-    rank's plain tensors (under a model mesh the models take their
-    einsum paths)."""
+    rank's plain tensors (under a model mesh the models call them per
+    rank, on each rank's local tensors, through ``local_map``)."""
     from torch.distributed.tensor import DTensor
 
     if any(isinstance(t, DTensor) for t in tensors):
         raise TypeError(f"{what} takes plain tensors, not DTensors: under "
-                        f"a model mesh the models run their einsum paths")
+                        f"a model mesh call it on each rank's local "
+                        f"tensors (models.layers._per_rank)")

@@ -7,11 +7,14 @@ weights across is a copy; they live in ``Params`` modules (a nested dict
 of tensors as an ``nn.Module``). Activations carry the reference's
 logical sharding constraints (``launch.meshctx.shard``): the identity
 without a mesh, a DTensor redistribution under one. Under a model mesh
-attention takes the reference's mesh-aware branch (the grouped einsum
-with kv heads sharded when they divide the "model" axis, else K/V
-repeated to every query head and the heads sharded, unevenly where they
-must be) and never the flash kernel, whose wrapper takes plain tensors
-only.
+attention lays out its heads as the reference's mesh-aware branch does
+(kv heads sharded when they divide the "model" axis, each rank's block
+of query heads reading its block of kv heads; else K/V repeated to every
+query head and the heads sharded, padded with zeros where "model" does
+not divide them), and each rank runs the core on its own batch and
+heads: the flash kernel for causal self-attention with
+``attn_impl="pallas"``, on the rank's plain local tensors (its wrapper
+takes no DTensor), else the einsum core.
 """
 from __future__ import annotations
 
@@ -214,10 +217,10 @@ def attention(p, cfg, x: torch.Tensor, positions: torch.Tensor, *,
     ``[B, S]``; ``kv_x`` ``[B, S_kv, d]`` makes it cross-attention (keys
     and values from ``kv_x``, no RoPE). ``attn_impl="pallas"`` runs the
     flash kernel through ``kernels.flash_attention.ops`` for causal
-    self-attention without a mesh only — on a CUDA tensor it launches
-    the kernel or raises; every other call takes an einsum path, f32
-    logits and probabilities cast to x's type, masked only when
-    ``causal``."""
+    self-attention, under a model mesh on every rank's own batch and
+    heads; on a CUDA tensor it launches the kernel or raises. Every
+    other call takes the einsum core: f32 logits and probabilities cast
+    to x's type, masked only when ``causal``."""
     h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     x = batch_only(x)
     src = x if kv_x is None else batch_only(kv_x)
@@ -231,51 +234,59 @@ def attention(p, cfg, x: torch.Tensor, positions: torch.Tensor, *,
         q = apply_rope(q, positions[:, None, :], cfg.rope_theta)
         k = apply_rope(k, positions[:, None, :], cfg.rope_theta)
 
+    flash = attn_impl == "pallas" and causal and kv_x is None
     mesh = current_mesh()
-    if attn_impl == "pallas" and causal and kv_x is None and mesh is None:
-        o = flash_ops.flash_attention(q, k, v)
-        b, _, s, _ = o.shape
-        o = o.transpose(1, 2).reshape(b, s, h * hd)
-    else:
+    n_model = mesh_sizes(mesh).get("model", 1) if mesh is not None else 1
+    group = h // hkv
+    b, _, sq_len, _ = q.shape
+    if hkv % max(n_model, 1) == 0:
         # The reference's TP strategy, mesh-aware: kv heads dividing the
-        # model axis (always so without a mesh) → the GQA-native grouped
-        # einsum, heads sharded, no head-repeated K/V; otherwise K/V
-        # repeated to every query head and the heads sharded. Products
-        # of x's type summed in f32 on both paths.
-        n_model = mesh_sizes(mesh).get("model", 1) if mesh is not None else 1
-        group = h // hkv
-        b, _, sq_len, _ = q.shape
-        if hkv % max(n_model, 1) == 0:
-            qg = shard(q.reshape(b, hkv, group, sq_len, hd),
-                       "batch", "model", None, None, None)
-            k = shard(k, "batch", "model", None, None)
-            v = shard(v, "batch", "model", None, None)
-            o = _per_rank(lambda qq, kk, vv: _scores_then_values(
+        # model axis (always so without a mesh) → GQA-native, heads
+        # sharded, no head-repeated K/V; otherwise K/V repeated to every
+        # query head and the heads sharded. The core runs per rank: the
+        # flash kernel (still GQA on the grouped layout) or the einsums,
+        # products of x's type summed in f32.
+        qg = shard(q.reshape(b, hkv, group, sq_len, hd),
+                   "batch", "model", None, None, None)
+        k = shard(k, "batch", "model", None, None)
+        v = shard(v, "batch", "model", None, None)
+        o = _per_rank(_grouped_flash if flash else (
+            lambda qq, kk, vv: _scores_then_values(
                 "bkgqd,bkld->bkgql", "bkgql,bkld->bkgqd", qq, kk, vv,
-                causal, x.dtype), qg, k, v)
-            o = o.permute(0, 3, 1, 2, 4).reshape(b, sq_len, h * hd)
-        else:
-            # heads padded with zeros to a multiple of the model axis and
-            # sharded evenly, as XLA pads an uneven head sharding; the
-            # padding is cut off before the out-projection
-            pad = (-h) % max(n_model, 1)
+                causal, x.dtype)), qg, k, v)
+        o = o.permute(0, 3, 1, 2, 4).reshape(b, sq_len, h * hd)
+    else:
+        # heads padded with zeros to a multiple of the model axis and
+        # sharded evenly, as XLA pads an uneven head sharding; the
+        # padding is cut off before the out-projection
+        pad = (-h) % max(n_model, 1)
 
-            def heads(t):
-                if pad:
-                    t = _per_rank(lambda u: F.pad(u, (0, 0, 0, 0, 0, pad)),
-                                  shard(t, "batch", None, None, None))
-                return shard(t, "batch", "model", None, None)
-
-            kx = heads(torch.repeat_interleave(k, group, dim=1))
-            vx = heads(torch.repeat_interleave(v, group, dim=1))
-            o = _per_rank(lambda qq, kk, vv: _scores_then_values(
-                "bhqd,bhkd->bhqk", "bhqk,bhkd->bhqd", qq, kk, vv, causal,
-                x.dtype), heads(q), kx, vx)
+        def heads(t):
             if pad:
-                o = _per_rank(lambda u: u[:, :h],
-                              shard(o, "batch", None, None, None))
-            o = _whole_heads(o.transpose(1, 2).reshape(b, sq_len, h * hd), h)
+                t = _per_rank(lambda u: F.pad(u, (0, 0, 0, 0, 0, pad)),
+                              shard(t, "batch", None, None, None))
+            return shard(t, "batch", "model", None, None)
+
+        kx = heads(torch.repeat_interleave(k, group, dim=1))
+        vx = heads(torch.repeat_interleave(v, group, dim=1))
+        o = _per_rank(flash_ops.flash_attention if flash else (
+            lambda qq, kk, vv: _scores_then_values(
+                "bhqd,bhkd->bhqk", "bhqk,bhkd->bhqd", qq, kk, vv, causal,
+                x.dtype)), heads(q), kx, vx)
+        if pad:
+            o = _per_rank(lambda u: u[:, :h],
+                          shard(o, "batch", None, None, None))
+        o = _whole_heads(o.transpose(1, 2).reshape(b, sq_len, h * hd), h)
     return batch_only(o @ p["wo"])
+
+
+def _grouped_flash(qg, k, v) -> torch.Tensor:
+    """The flash kernel on one rank's grouped blocks: q ``[B, Hkv, G, S,
+    D]`` (kv-major, so its ``Hkv·G`` query heads read its ``Hkv`` kv
+    heads) and k, v ``[B, Hkv, S, D]``; the output in q's layout."""
+    b, hkv, g, s, d = qg.shape
+    o = flash_ops.flash_attention(qg.reshape(b, hkv * g, s, d), k, v)
+    return o.reshape(b, hkv, g, s, d)
 
 
 def _scores_then_values(scores: str, values: str, q, k, v, causal: bool,

@@ -37,8 +37,13 @@ its shard's sample into its own sketches, and the window is answered
 from summaries merged across the ranks of a ``launch.mesh.DataMesh``:
 CLT moments and histogram bins summed, counts summed as exact integers,
 quantile buffers and count-min tables gathered and merged with merge
-randomness every rank draws alike. ``MultiTenantPlan``, which the slot
-plan replaced bit for bit, is not ported: no path reaches it.
+randomness every rank draws alike.
+
+``MultiTenantPlan`` is the reference's first multi-tenant plan: one
+``CompiledQueryPlan`` per tenant evaluated in one root step, the public
+vector the tenants' blocks in registration order. The slot plan
+replaced it on every path with the same public layout; it stays a
+public name of both packages.
 """
 from __future__ import annotations
 
@@ -395,6 +400,105 @@ class CompiledQueryPlan:
         return out
 
 
+class MultiTenantPlan:
+    """K tenants' registries answered from one window sample in one root
+    step. Each tenant keeps its own ``CompiledQueryPlan`` and draws from
+    the same root key, so its answers, bounds and sketch state are those
+    of a single-tenant plan of its registry; the flat vector is the
+    tenants' vectors concatenated in registration order, and ``layout()``
+    names its slots ``"tenant/query"``. It has the plan protocol
+    (``draws``, ``evaluate``, ``init_state``, ``layout``, ``answer``, and
+    on the mesh ``draws_spmd``, ``evaluate_spmd``)."""
+
+    def __init__(self, tenants, num_strata: int):
+        """``tenants``: ordered ``(name, (QuerySpec, ...))`` pairs."""
+        tenants = tuple((str(n), tuple(specs)) for n, specs in tenants)
+        if not tenants:
+            raise ValueError("cannot compile an empty tenant list")
+        names = [n for n, _ in tenants]
+        if len(set(names)) != len(names):
+            dup = sorted({n for n in names if names.count(n) > 1})
+            raise ValueError(f"duplicate tenant names: {dup}")
+        self.tenant_names = tuple(names)
+        self.num_strata = int(num_strata)
+        self.plans = tuple(CompiledQueryPlan(specs, num_strata)
+                           for _, specs in tenants)
+        self._offsets = {}
+        off = 0
+        for name, plan in zip(self.tenant_names, self.plans):
+            self._offsets[name] = off
+            off += plan.n_out
+        self.n_out = off
+
+    @property
+    def k(self) -> int:
+        return sum(p.k for p in self.plans)
+
+    def plan_for(self, tenant: str) -> CompiledQueryPlan:
+        if tenant not in self._offsets:
+            raise KeyError(f"unknown tenant {tenant!r}; "
+                           f"registered: {list(self.tenant_names)}")
+        return self.plans[self.tenant_names.index(tenant)]
+
+    def tenant_slice(self, tenant: str) -> tuple[int, int]:
+        """(offset, width) of one tenant's block in the flat vector."""
+        return self._offsets[tenant], self.plan_for(tenant).n_out
+
+    def layout(self) -> dict[str, tuple[int, int, str]]:
+        """``"tenant/query"`` → (absolute offset, width, kind)."""
+        out = {}
+        for name, plan in zip(self.tenant_names, self.plans):
+            base = self._offsets[name]
+            for q, (o, w, kind) in plan.layout().items():
+                out[f"{name}/{q}"] = (base + o, w, kind)
+        return out
+
+    def answer(self, vec, name: str) -> np.ndarray:
+        """One ``"tenant/query"`` answer out of a flat (host) vector."""
+        o, w, _ = self.layout()[name]
+        return _host(vec)[..., o:o + w]
+
+    def tenant_answers(self, vec, tenant: str) -> np.ndarray:
+        o, w = self.tenant_slice(tenant)
+        return _host(vec)[..., o:o + w]
+
+    def init_state(self, device=None) -> tuple:
+        return tuple(p.init_state(device) for p in self.plans)
+
+    def draws(self, keys: torch.Tensor) -> tuple:
+        """Per tenant, its plan's ``draws`` for the same root keys."""
+        return tuple(p.draws(keys) for p in self.plans)
+
+    def draws_spmd(self, keys: torch.Tensor, rank: int) -> tuple:
+        return tuple(p.draws_spmd(keys, rank) for p in self.plans)
+
+    def evaluate(self, draws, batch: IntervalBatch, res: SampleResult,
+                 state: tuple) -> tuple:
+        """(state', answers f32[n_out], bounds f32[n_out]): every tenant's
+        plan on the same window sample and root key."""
+        return self._concat([p.evaluate(dr, batch, res, st) for p, dr, st
+                             in zip(self.plans, draws, state)])
+
+    def evaluate_spmd(self, draws, batch: IntervalBatch, res: SampleResult,
+                      state: tuple, mesh, share=None) -> tuple:
+        """``evaluate`` on the mesh: every tenant's plan's
+        ``evaluate_spmd`` on the same root key (``share`` the mean's merge
+        weight when the caller has it)."""
+        return self._concat([p.evaluate_spmd(dr, batch, res, st, mesh,
+                                             share=share)
+                             for p, dr, st in zip(self.plans, draws, state)])
+
+    @staticmethod
+    def _concat(parts) -> tuple:
+        states, outs, bnds = zip(*parts)
+        return tuple(states), torch.cat(outs), torch.cat(bnds)
+
+    def exact_answers(self, values: np.ndarray,
+                      strata: np.ndarray | None = None) -> np.ndarray:
+        return np.concatenate([p.exact_answers(values, strata)
+                               for p in self.plans])
+
+
 def _host(vec) -> np.ndarray:
     if torch.is_tensor(vec):
         return vec.detach().cpu().numpy()
@@ -626,6 +730,17 @@ class SlottedTenantPlan:
                 label = q if single else f"{name}/{q}"
                 out[label] = (base + o, w, kind)
         return out
+
+    def answer(self, vec, name: str) -> np.ndarray:
+        """One query's answer (``layout()``'s name) out of a flat PUBLIC
+        (host) vector."""
+        o, w, _ = self.layout()[name]
+        return _host(vec)[..., o:o + w]
+
+    def tenant_answers(self, vec, tenant: str) -> np.ndarray:
+        """One tenant's block of a flat PUBLIC (host) vector."""
+        o, w = self.tenant_slice(tenant)
+        return _host(vec)[..., o:o + w]
 
     def init_state(self, device=None) -> tuple:
         """Core init state with this plan's live slots activated."""

@@ -6,8 +6,13 @@ skips without one. The module imports neither JAX nor the reference:
 
     python -m pytest -m cuda tests/test_torch_cuda_model_mesh.py
 
-Two gloo ranks share ``cuda:0`` (every collective staged through the
-host); a reduced SmolLM-135M takes one step on a ``data 2 × model 1``
+Gloo ranks share ``cuda:0`` (every collective staged through the
+host). A bf16 sharded prefill through the flash kernel on data 2 × model
+2 ranks (a reduced SmolLM-135M with its own 9 / 3 heads: K/V repeated,
+heads padded; and with 4 / 2: grouped) launches the kernel once a layer
+on every rank, and each rank's first launch is bitwise the one-rank
+kernel's output on the same (batch, head) block. And a reduced
+SmolLM-135M takes one step on a ``data 2 × model 1``
 and a ``data 1 × model 2`` mesh from seeded weights. The loss and
 ``grad_norm`` are within ``STEP_TOL`` of the one-rank step's; each
 leaf's gradient (recovered from ``m``), ``m`` and ``v`` within
@@ -78,3 +83,36 @@ def test_sharded_step_on_ranks_sharing_the_card(cuda_device, shape):
     for r in ranks[1:]:
         for a, b in zip(_leaves(r["params"]), _leaves(got["params"])):
             np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("heads", [(9, 3), (4, 2)])
+def test_sharded_prefill_runs_the_kernel_on_every_rank(cuda_device, heads):
+    from repro_torch.kernels.flash_attention import ops as fa
+
+    kw = dict(num_heads=heads[0], num_kv_heads=heads[1])
+    ranks = spawn_ranks(R.card_prefill, 4, args=("smollm-135m", kw),
+                        device="cuda", backend="gloo", timeout_s=600)
+    for r in ranks:
+        assert r["launches"] == r["layers"]
+    blocks = {r["coords"]: r["core"] for r in ranks}
+
+    def whole(i):
+        return torch.cat([torch.cat([blocks[(d, m)][i] for m in range(2)],
+                                    dim=1) for d in range(2)], dim=0)
+
+    q, k, v = (whole(i).to(cuda_device) for i in range(3))
+    h, hkv = heads
+    hl = q.shape[1] // 2
+    if hkv % 2:          # repeated and padded: back to the GQA layout
+        g = h // hkv
+        assert not q[:, h:].any() and not k[:, h:].any()
+        q, k, v = q[:, :h], k[:, :h:g], v[:, :h:g]
+    one = fa.flash_attention(q, k, v).cpu()
+    bl = q.shape[0] // 2
+    for (d, m), core in blocks.items():
+        real = min(hl, h - m * hl)
+        o = core[3]
+        assert torch.equal(o[:, :real].view(torch.int16),
+                           one[d * bl:(d + 1) * bl, m * hl:m * hl + real]
+                           .view(torch.int16)), (d, m)
+        assert not o[:, real:].any()

@@ -18,8 +18,20 @@ carried weights and batches, concurrently with the reference.
   ``(2, 2)`` rank mesh every rank's kept set is its group's of the
   reference's ``G = 2`` dispatch.
 * Attention on both of the reference's mesh branches: kv heads dividing
-  the model axis (the grouped einsum) and not (K/V repeated to every
-  head), once with heads that the model axis does not divide (padded).
+  the model axis (grouped) and not (K/V repeated to every head), once
+  with heads that the model axis does not divide (padded), with the
+  einsum core (``"xla"``) and the flash kernel (``"pallas"``: the
+  reference runs its Pallas kernel in interpret mode, the port's ranks
+  the kernel's plain version on their local tensors).
+* Sharded prefills with ``"pallas"``: a reduced SmolLM-135M with its own
+  9 query and 3 kv heads (repeated and padded over model 2) and a
+  reduced whisper-medium (grouped; its encoder and cross-attention keep
+  the einsum core), logits within ``TOL`` of the reference's sharded
+  prefill; every rank calls the flash wrapper once a causal layer with
+  plain tensors of its local shapes, and the einsum core only where the
+  reference does. The wrapper refuses DTensors, and a sharded train step
+  with ``"pallas"`` raises (the kernel has no backward, nor has the
+  reference's).
 * One sharded train step of each of the six families: loss and
   ``grad_norm`` within ``STEP_TOL`` of the reference's **sharded** step
   at the same mesh shape (for qwen2-moe the sharded loss, whose groups
@@ -28,6 +40,7 @@ carried weights and batches, concurrently with the reference.
   as ``tests/test_torch_train.py`` holds them, and the parameters to
   ``STEP_TOL`` plus ``2·lr`` where the gradient is under ``TINY_GRAD``.
 """
+import dataclasses
 import os
 import pathlib
 import subprocess
@@ -72,6 +85,13 @@ ATTN = {  # name -> reduced-config overrides
     "repeated": dict(num_heads=4, num_kv_heads=1),
     "repeated_padded": dict(num_heads=3, num_kv_heads=1),
 }
+IMPLS = ("xla", "pallas")
+# name -> (arch, reduced-config overrides): SmolLM-135M's own heads (3 kv
+# heads over model 2: repeated, 9 heads padded to 10), whisper-medium's
+# reduced 4 / 2 (grouped)
+PREFILL = {"smollm-135m": ("smollm-135m", dict(num_heads=9,
+                                               num_kv_heads=3)),
+           "whisper-medium": ("whisper-medium", {})}
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 _REFERENCE = textwrap.dedent("""
@@ -120,15 +140,28 @@ _REFERENCE = textwrap.dedent("""
             "metrics": {k: float(v) for k, v in met.items()},
             "params": host(p2), "m": host(o2["m"]), "v": host(o2["v"])}
 
-    for name, (kw, p, x) in job["attention"].items():
+    for name, (kw, impl, p, x) in job["attention"].items():
         cfg = dataclasses.replace(registry.get_config("smollm-135m")
                                   .reduced(), **kw)
         b, s, _ = x.shape
         pos = jnp.broadcast_to(jnp.arange(s)[None], (b, s))
         with use_mesh(mesh):
-            y = jax.jit(lambda p, x: L.attention(p, cfg, x, pos))(
+            y = jax.jit(lambda p, x: L.attention(p, cfg, x, pos,
+                                                 attn_impl=impl))(
                 jax.tree.map(jnp.asarray, p), jnp.asarray(x))
         out["attention/" + name] = np.asarray(y)
+
+    for name, (arch, kw, params, batch) in job["prefill"].items():
+        cfg = dataclasses.replace(registry.get_config(arch).reduced(),
+                                  attention_impl="pallas", **kw)
+        params = jax.tree.map(jnp.asarray, params)
+        batch = {k: jnp.asarray(v) for k, v in batch.items()}
+        with use_mesh(mesh):
+            step = jax.jit(train_step.make_prefill_step(cfg), in_shardings=(
+                named(mesh, sharding.param_specs(params, mesh)),
+                named(mesh, sharding.batch_specs(batch, mesh))))
+            out["prefill/" + name] = np.asarray(step(params, batch),
+                                                np.float32)
 
     cfg = registry.get_config("qwen2-moe-a2.7b").reduced()
 
@@ -185,8 +218,6 @@ def _batch(cfg, b=4, s=64, seed=0):
 
 
 def _job():
-    import dataclasses
-
     train = {}
     for name, (arch, kw) in TRAIN.items():
         cfg = dataclasses.replace(JR.get_config(arch).reduced(), **kw)
@@ -199,14 +230,24 @@ def _job():
                                   **kw)
         p = _host(JL.attention_init(jax.random.PRNGKey(3), cfg, jnp.float32))
         x = rng.normal(size=(4, 64, cfg.d_model)).astype(np.float32)
-        attention[name] = (kw, p, x)
+        for impl in IMPLS:
+            attention[f"{name}/{impl}"] = (kw, impl, p, x)
+    prefill = {}
+    for name, (arch, kw) in PREFILL.items():
+        cfg = dataclasses.replace(JR.get_config(arch).reduced(), **kw)
+        params = _host(JM.init_params(cfg, jax.random.PRNGKey(4)))
+        batch = _batch(cfg, seed=6)
+        prefill[name] = (arch, kw, params,
+                         {k: batch[k] for k in ("tokens", "frames")
+                          if k in batch})
     mcfg = JR.get_config("qwen2-moe-a2.7b").reduced()
     mp = _host(JMOE.moe_init(jax.random.PRNGKey(7), mcfg, jnp.float32))
     x8 = rng.normal(size=(8, 16, mcfg.d_model)).astype(np.float32)
     x4 = rng.normal(size=(4, 32, mcfg.d_model)).astype(np.float32)
     moe = {"g4_cf8": (mp, x8, 8.0, (4, 2)), "g4_cf1": (mp, x8, 1.0, (4, 2)),
            "g2_cf1": (mp, x4, 1.0, (2, 2))}
-    return dict(train=train, attention=attention, moe=moe, opt=OPT)
+    return dict(train=train, attention=attention, prefill=prefill, moe=moe,
+                opt=OPT)
 
 
 @pytest.fixture(scope="module")
@@ -217,9 +258,10 @@ def runs():
     job = _job()
     rank_job = dict(
         opt=OPT, train=job["train"],
-        attention={n: ("smollm-135m", kw, p, x)
-                   for n, (kw, p, x) in job["attention"].items()},
-        moe={"g2_cf1": job["moe"]["g2_cf1"][:3]})
+        attention={n: ("smollm-135m", kw, impl, p, x)
+                   for n, (kw, impl, p, x) in job["attention"].items()},
+        prefill=job["prefill"],
+        refusals=True, moe={"g2_cf1": job["moe"]["g2_cf1"][:3]})
     with tempfile.TemporaryDirectory() as tmp:
         src, dst = os.path.join(tmp, "job.pkl"), os.path.join(tmp, "out.pkl")
         with open(src, "wb") as f:
@@ -363,10 +405,63 @@ def test_moe_ranks_keep_their_groups(runs):
 
 
 # -------------------------------------------------------------- attention --
+@pytest.mark.parametrize("attn_impl", IMPLS)
 @pytest.mark.parametrize("name", list(ATTN))
-def test_attention_branches_match_the_reference(runs, name):
+def test_attention_branches_match_the_reference(runs, name, attn_impl):
     _, want, got, _ = runs
-    _close(got["attention/" + name], want["attention/" + name])
+    key = f"attention/{name}/{attn_impl}"
+    _close(got[key], want[key])
+
+
+@pytest.mark.parametrize("name", list(PREFILL))
+def test_sharded_pallas_prefill_matches_the_sharded_reference(runs, name):
+    _, want, got, _ = runs
+    _close(got[f"prefill/{name}"]["logits"], want[f"prefill/{name}"])
+
+
+def _local_heads(cfg, n_model):
+    """(query heads, kv heads) a rank's flash call takes: the grouped
+    layout's blocks, or the repeated heads padded to the model axis."""
+    h, hkv = cfg.num_heads, cfg.num_kv_heads
+    if hkv % n_model == 0:
+        return h // n_model, hkv // n_model
+    hp = h + (-h) % n_model
+    return hp // n_model, hp // n_model
+
+
+@pytest.mark.parametrize("name", list(PREFILL))
+def test_every_rank_calls_the_flash_wrapper_once_a_causal_layer(runs, name):
+    """Under the ``(2, 2)`` mesh each rank reaches
+    ``flash_ops.flash_attention`` once per causal self-attention layer,
+    with plain tensors of its batch shard and its heads; the einsum core
+    runs only where the reference runs it too (whisper's encoder and
+    cross-attention), never in place of the kernel."""
+    job, _, _, ranks = runs
+    arch, kw, _, batch = job["prefill"][name]
+    cfg = dataclasses.replace(TR.get_config(arch).reduced(), **kw)
+    b, s = batch["tokens"].shape
+    hq, hkv = _local_heads(cfg, 2)
+    d = cfg.head_dim
+    want = [((True, True, True),
+             ((b // 2, hq, s, d), (b // 2, hkv, s, d), (b // 2, hkv, s, d)))
+            ] * cfg.num_layers
+    # whisper: each encoder layer's attention and each decoder layer's
+    # cross-attention
+    einsum = (cfg.encoder_layers + cfg.num_layers
+              if cfg.family == "encdec" else 0)
+    for r in ranks:
+        calls = r[f"prefill/{name}"]["calls"]
+        assert calls["flash"] == want, (r["rank"], calls["flash"])
+        assert calls["einsum"] == einsum, r["rank"]
+
+
+def test_the_wrapper_refuses_dtensors_and_pallas_does_not_train(runs):
+    _, _, _, ranks = runs
+    for r in ranks:
+        kind, msg = r["refusals"]["dtensor"]
+        assert kind == "TypeError" and "not DTensors" in msg
+        kind, msg = r["refusals"]["train"]
+        assert kind == "RuntimeError" and "no backward" in msg
 
 
 # ------------------------------------------------------------- train step --

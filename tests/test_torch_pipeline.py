@@ -236,6 +236,39 @@ def test_compile_defaults_to_cuda_and_raises_without_it(monkeypatch):
     assert P.compile(P.PipelineSpec(), device="cpu").device.type == "cpu"
 
 
+def test_package_exports_match_the_reference():
+    """``repro_torch.api``, ``.core`` and ``.obs`` export every public
+    name the reference's packages do, each the port's own counterpart
+    (modules of the port's ``core``, ``compile_pipeline`` an alias of
+    ``compile``)."""
+    import types
+
+    import repro.api as japi
+    import repro.core as jcore
+    import repro.obs as jobs
+    import repro_torch.api as tapi
+    import repro_torch.core as tcore
+    import repro_torch.obs as tobs
+
+    assert set(japi.__all__) <= set(tapi.__all__)
+    assert set(jobs.__all__) <= set(tobs.__all__)
+    for jmod, tmod in ((japi, tapi), (jobs, tobs)):
+        for name in jmod.__all__:
+            assert getattr(tmod, name).__module__.startswith(
+                tmod.__name__), name
+    assert tapi.compile_pipeline is tapi.compile
+    public = {n for n in vars(jcore) if not n.startswith("_")}
+    assert public == {"error", "queries", "sampling", "srs", "tree", "whs",
+                      "window", "types", "IntervalBatch", "QueryResult",
+                      "SampleResult", "StratumMeta"}
+    for name in public:
+        got = getattr(tcore, name)
+        if isinstance(getattr(jcore, name), types.ModuleType):
+            assert got.__name__ == f"repro_torch.core.{name}"
+        else:
+            assert got.__module__ == "repro_torch.core.types"
+
+
 def _imports(path: Path) -> set[str]:
     mods = set()
     for node in ast.walk(ast.parse(path.read_text())):
@@ -269,7 +302,7 @@ def test_port_never_imports_jax_or_the_reference():
     for tool in ("flash_planted_faults.py", "flash_rounding_check.py",
                  "fused_tick_phases.py", "kernel_ab.py", "fadd_chain.py",
                  "launch_floor.py", "gloo_cuda_collectives.py",
-                 "model_path_ab.py"):
+                 "model_path_ab.py", "wgmma_error_probe.py"):
         assert REPO / "tools" / tool in tools, tool
     files += tools
     assert len(files) > 20

@@ -222,6 +222,115 @@ def test_slot_plan_core_with_two_groups_matches_reference():
     assert not ta[o:o + w].any()
 
 
+# ------------------------------------------------------ MultiTenantPlan --
+def _two_tenants(reg):
+    return [("k8", _k8(reg).specs), ("dashboard", _dashboard(reg).specs)]
+
+
+def test_multi_tenant_plan_matches_reference():
+    """The testbed's ``k8`` + ``dashboard`` tenants at its root (2,200
+    slots, 4 strata) over 6 windows: answers, CLT bounds and every
+    sketch state leaf bitwise the reference's jitted plan, sketch bounds
+    within ``TOTAL_RTOL``; the public vector bitwise the slot plan's,
+    which replaced it."""
+    x = 4
+    jplan = JC.MultiTenantPlan(_two_tenants(JReg), x)
+    tplan = TC.MultiTenantPlan(_two_tenants(TReg), x)
+    slots = TC.build_slotted_plan(_two_tenants(TReg), x)
+    assert tplan.layout() == jplan.layout() == slots.layout()
+    assert (tplan.n_out, tplan.k) == (jplan.n_out, jplan.k)
+    for t in ("k8", "dashboard"):
+        assert tplan.tenant_slice(t) == jplan.tenant_slice(t)
+    ev = jax.jit(jplan.evaluate)
+    js, ts, ss = jplan.init_state(), tplan.init_state(), slots.init_state()
+    rng = np.random.default_rng(12)
+    for step in range(6):
+        jb, jr, tb, tr = _window(rng, 2200, x)
+        key = jax.random.fold_in(jax.random.PRNGKey(8), step)
+        js, ja, jbd = ev(key, jb, jr, js)
+        ts, ta, tbd = tplan.evaluate(tplan.draws(_tkey(key)), tb, tr, ts)
+        _bits(ta.numpy(), ja, f"answers, window {step}")
+        _compare_bounds(tbd.numpy(), jbd, jplan.layout())
+        _compare_qstate(ts, js)
+        ss, sa, sbd = slots.evaluate(slots.draws(_tkey(key)), tb, tr, ss)
+        _bits(ta.numpy(), slots.compact(sa).numpy(), "slot plan answers")
+        _bits(tbd.numpy(), slots.compact(sbd).numpy(), "slot plan bounds")
+    with pytest.raises(KeyError):
+        tplan.plan_for("nope")
+    with pytest.raises(ValueError, match="duplicate tenant names"):
+        TC.MultiTenantPlan([("a", _k8(TReg).specs)] * 2, x)
+
+
+def test_multi_tenant_plan_tenants_are_single_plans():
+    """Each tenant's block of the fused evaluation is bitwise a
+    single-tenant plan of its registry on the same sample and root key:
+    answers, bounds and state, locally and on a one-rank data mesh
+    (``evaluate_spmd``)."""
+    from repro_torch.launch.mesh import DataMesh
+
+    x = 4
+    tplan = TC.MultiTenantPlan(_two_tenants(TReg), x)
+    singles = {t: TC.CompiledQueryPlan(sp, x) for t, sp in
+               _two_tenants(TReg)}
+    mesh = DataMesh(rank=0, size=1, device=torch.device("cpu"),
+                    backend="gloo")
+    state = {"local": tplan.init_state(), "spmd": tplan.init_state()}
+    alone = {(t, m): p.init_state() for t, p in singles.items()
+             for m in state}
+    rng = np.random.default_rng(13)
+    for step in range(4):
+        _, _, tb, tr = _window(rng, 2200, x)
+        key = _tkey(jax.random.fold_in(jax.random.PRNGKey(9), step))
+        state["local"], ta, tbd = tplan.evaluate(
+            tplan.draws(key), tb, tr, state["local"])
+        state["spmd"], sa, sbd = tplan.evaluate_spmd(
+            tplan.draws_spmd(key, 0), tb, tr, state["spmd"], mesh)
+        for i, (t, p) in enumerate(singles.items()):
+            alone[t, "local"], a, b = p.evaluate(p.draws(key), tb, tr,
+                                                 alone[t, "local"])
+            _bits(tplan.tenant_answers(ta, t), a.numpy(), t)
+            _bits(tplan.tenant_answers(tbd, t), b.numpy(), t)
+            _compare_qstate(state["local"][i], tuple(
+                _tree_numpy(alone[t, "local"])))
+            alone[t, "spmd"], a, b = p.evaluate_spmd(
+                p.draws_spmd(key, 0), tb, tr, alone[t, "spmd"], mesh)
+            _bits(tplan.tenant_answers(sa, t), a.numpy(), t)
+            _bits(tplan.tenant_answers(sbd, t), b.numpy(), t)
+            _compare_qstate(state["spmd"][i], tuple(
+                _tree_numpy(alone[t, "spmd"])))
+
+
+def _tree_numpy(tree):
+    """A port state's tensor leaves as numpy, its tuples kept."""
+    if torch.is_tensor(tree):
+        return tree.numpy()
+    out = [_tree_numpy(t) for t in tree]
+    return type(tree)(*out) if hasattr(tree, "_fields") else tuple(out)
+
+
+@pytest.mark.parametrize("kind", ["slotted", "multi"])
+def test_answer_and_tenant_answers_slice_like_the_reference(kind):
+    """``answer`` and ``tenant_answers`` of both multi-tenant plans cut
+    the reference's slots out of a flat vector, or a stack of them,
+    given as a tensor or an array."""
+    x = 4
+    if kind == "slotted":
+        jplan = JC.build_slotted_plan(_two_tenants(JReg), x)
+        tplan = TC.build_slotted_plan(_two_tenants(TReg), x)
+    else:
+        jplan = JC.MultiTenantPlan(_two_tenants(JReg), x)
+        tplan = TC.MultiTenantPlan(_two_tenants(TReg), x)
+    vec = np.arange(3 * jplan.n_out, dtype=np.float32).reshape(3, -1)
+    for v in (vec, torch.from_numpy(vec)):
+        for name in jplan.layout():
+            _bits(tplan.answer(v, name), jplan.answer(vec, name), name)
+        for t in ("k8", "dashboard"):
+            _bits(tplan.tenant_answers(v, t), jplan.tenant_answers(vec, t),
+                  t)
+    with pytest.raises(KeyError):
+        tplan.tenant_answers(vec, "nope")
+
+
 def _padded_layout(plan) -> dict:
     """Every tenant's queries at their PADDED offsets (slot order)."""
     out = {}

@@ -248,6 +248,34 @@ def test_compact_sample_matches_reference(out_cap):
                                     np.asarray(want.meta.weight), maxulp=1)
 
 
+def test_apply_sample_matches_reference():
+    """The forward step on one node's sample: the batch in place, its
+    valid mask the selection and its meta the sample's, bitwise the
+    reference's on the same sample (the port's own whsamp's, so every
+    field is the same bits on both sides)."""
+    from repro.core.types import SampleResult as JRes
+    from repro_torch.core.types import SampleResult as TRes
+
+    vals, strata, valid, _ = _items(41, 500, 4)
+    w = np.array([2.0, 1.0, 7.5, 3.0], np.float32)
+    c = np.array([10.0, 0.0, 5.0, 80.0], np.float32)
+    tb = TBatch(*(torch.from_numpy(a) for a in (vals, strata, valid)),
+                TMeta(torch.from_numpy(w), torch.from_numpy(c)))
+    res = twhs.whsamp(prng.PRNGKey(5), tb, torch.tensor(90.0), 4)
+    got = twhs.apply_sample(tb, res)
+    assert torch.equal(got.valid, res.selected) and not torch.equal(
+        got.valid, tb.valid)
+    jb = JBatch(jnp.asarray(vals), jnp.asarray(strata), jnp.asarray(valid),
+                JMeta(jnp.asarray(w), jnp.asarray(c)))
+    jr = JRes(*(np.asarray(t) if torch.is_tensor(t) else
+                JMeta(*(np.asarray(u) for u in t)) for t in res))
+    want = jax.jit(jwhs.apply_sample)(jb, jr)
+    for name in ("value", "stratum", "valid"):
+        _bits(getattr(got, name).numpy(), getattr(want, name))
+    for name in ("weight", "count"):
+        _bits(getattr(got.meta, name).numpy(), getattr(want.meta, name))
+
+
 def test_sqrt_rn_is_the_reference_sqrt():
     """``torch.sqrt`` of f32 on the CPU is off by 1 ulp on some inputs;
     ``sqrt_rn`` (which ``stratum_stds`` and the query bounds use) equals

@@ -1,6 +1,6 @@
 """Device times of ``fused_level_tick``, ``fused_select``,
-``quantile_compact``, ``segment_sum``, ``stratified_stats`` and
-``sample_mask`` for two source trees of the port, in one call on one
+``quantile_compact``, ``segment_sum``, ``stratified_stats``,
+``sample_mask`` and ``flash_attention`` for two source trees of the port, in one call on one
 CUDA card.
 
     python3 tools/kernel_ab.py OTHER_TREE
@@ -23,7 +23,11 @@ the τ producer → mask span (``chip_smoke.select_tail`` queued behind a
 spin kernel, ``chip_smoke.span_ms``: a programmatic dependent launch
 can start before the τ producer ends, which a sum of durations would
 not show), and by the wrapper's host issue time (``chip_smoke.loop_ms``
-over 200 back-to-back calls). Times are ``chip_smoke.device_ms`` (the
+over 200 back-to-back calls), and the bf16 ``flash_attention`` at
+SmolLM-135M's prefill shape ``chip_smoke.SMOLLM_ATTN``, at one rank's
+block of it on the model mesh ``(4, 5, 5, 2048, 64)`` and at
+``chip_smoke.QWEN3_ATTN`` (head dim 128), on ``chip_smoke.flash_inputs``
+(seed 3). Times are ``chip_smoke.device_ms`` (the
 median of profiler traces), per launch.
 Prints one JSON line per run and the card's name and power limit.
 """
@@ -44,6 +48,7 @@ def measure(tree: Path, path_shapes) -> dict:
     sys.path.insert(0, str(tree / "src"))
     sys.path.insert(0, str(ROOT))
     import chip_smoke as C
+    from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.fused_level_tick import ops as ft, ref as ft_ref
     from repro_torch.kernels.sample_mask import ops as sm
     from repro_torch.kernels.segment_sum import ops as seg
@@ -92,6 +97,11 @@ def measure(tree: Path, path_shapes) -> dict:
             C.select_tail(sm.sample_mask, *args[:4]), "sample_mask", back=2)
         stats[f"sample_mask wrapper loop ({m}, {x})"] = C.loop_ms(
             lambda a=args: sm.sample_mask(*a), 200)
+    for shape in (C.SMOLLM_ATTN, (4, 5, 5, 2048, 64), C.QWEN3_ATTN):
+        qkv = C.flash_inputs(shape, torch.bfloat16, 3, dev)
+        stats[f"flash_attention bf16 {shape}"] = C.device_ms(
+            lambda a=qkv: fa.flash_attention(*a))
+        del qkv
     return {
         "tree": str(tree),
         "fused_level_tick L0": C.device_ms(
