@@ -7,7 +7,9 @@ The counterpart of ``repro.api.pipeline``:
 * ``run_epoch(state, key, values, strata, counts, budgets)`` →
   ``(state', WindowAnswers)``: ``T`` ticks of the scan engine
   (``core.tree``). The tick counter is read back once per epoch and
-  nothing inside the tick loop waits for the device.
+  nothing inside the tick loop waits for the device. Where the tracer
+  records (``obs.trace``), the call leaves the spans ``run_epoch`` →
+  ``ingest_copy``, ``tick_read``, ``priorities``, ``tick`` × ``T``.
 * ``step(...)``: ``run_epoch`` with ``T = 1``.
 * ``QueryRouting`` (``rows``, ``query_layout``, ``answer``,
   ``tenant_answers``, ``tenant_rel_errors``): per-tenant routing of the
@@ -44,6 +46,7 @@ from repro_torch.core import prng
 from repro_torch.core import tree as T
 from repro_torch.core.window import TreeState
 from repro_torch.device import resolve_device
+from repro_torch.obs.trace import get_tracer, span
 
 
 class PipelineState(NamedTuple):
@@ -271,8 +274,6 @@ class CompiledPipeline(QueryRouting):
         if self.plan is None:
             raise SpecError("admit() needs a tenanted pipeline — compile "
                             "with at least one TenantSpec")
-        from repro_torch.obs.trace import span
-
         with span("admit", tenant=tenant.name):
             try:
                 new_plan, transform = self.plan.admit(tenant.name,
@@ -292,8 +293,6 @@ class CompiledPipeline(QueryRouting):
         their frozen state and never vote in budget arbitration."""
         if self.plan is None:
             raise SpecError("retire() needs a tenanted pipeline")
-        from repro_torch.obs.trace import span
-
         with span("retire", tenant=tenant_id):
             try:
                 new_plan, transform = self.plan.retire(tenant_id)
@@ -367,31 +366,47 @@ class CompiledPipeline(QueryRouting):
         returned state, so do not use the argument after the call.
         """
         dev = self.device
-        values = torch.as_tensor(values, dtype=torch.float32, device=dev)
-        strata = torch.as_tensor(strata, dtype=torch.int32, device=dev)
-        counts = torch.as_tensor(counts, dtype=torch.int32, device=dev)
-        epoch_ticks, n0 = counts.shape
-        if n0 != self.fanin[0]:
-            raise SpecError(f"ingest rows must match level-0 nodes: got "
-                            f"{n0} for fanin {tuple(self.fanin)}")
-        b = torch.tensor(self.clamp_budgets(budgets), dtype=torch.float32,
-                         device=dev)
-        key = torch.as_tensor(key, dtype=torch.int64, device=dev)
-        t0 = int(state.tick)  # the one host read of the epoch
-        tree, outs = self._epoch_fn(state.tree, key, t0, b, values, strata,
-                                    counts)
-        if self.plan is not None:
-            ts, ok, se, sv, me, mv, nsel, hist, ans, bnd, n_fwd = outs
-            # The core answers the padded slot vector; the public vector
-            # is the live tenants' blocks.
-            ans, bnd = self.plan.compact(ans), self.plan.compact(bnd)
-        else:
-            ts, ok, se, sv, me, mv, nsel, hist, n_fwd = outs
-            ans = bnd = None
-        wa = WindowAnswers(tick=ts, ok=ok, sum=se, sum_var=sv, mean=me,
-                           mean_var=mv, n_sampled=nsel, histogram=hist,
-                           answers=ans, bounds=bnd, n_forwarded=n_fwd)
-        return PipelineState(tree=tree, tick=state.tick + epoch_ticks), wa
+        tracer = get_tracer()
+        with tracer.epoch_span("run_epoch", ticks=len(counts)):
+            with tracer.span("ingest_copy") as meta:
+                given = (values, strata, counts)
+                values = torch.as_tensor(values, dtype=torch.float32,
+                                         device=dev)
+                strata = torch.as_tensor(strata, dtype=torch.int32,
+                                         device=dev)
+                counts = torch.as_tensor(counts, dtype=torch.int32,
+                                         device=dev)
+                if meta is not None:
+                    # bytes moved onto the device: 0 for its own tensors
+                    meta["bytes"] = sum(
+                        t.nbytes for x, t in zip(given,
+                                                 (values, strata, counts))
+                        if not (torch.is_tensor(x) and x.device == t.device))
+                    tracer.count("ingest_bytes", meta["bytes"])
+            epoch_ticks, n0 = counts.shape
+            if n0 != self.fanin[0]:
+                raise SpecError(f"ingest rows must match level-0 nodes: got "
+                                f"{n0} for fanin {tuple(self.fanin)}")
+            b = torch.tensor(self.clamp_budgets(budgets), dtype=torch.float32,
+                             device=dev)
+            key = torch.as_tensor(key, dtype=torch.int64, device=dev)
+            with tracer.span("tick_read"):
+                t0 = int(state.tick)  # the one host read of the epoch
+            tree, outs = self._epoch_fn(state.tree, key, t0, b, values,
+                                        strata, counts)
+            if self.plan is not None:
+                ts, ok, se, sv, me, mv, nsel, hist, ans, bnd, n_fwd = outs
+                # The core answers the padded slot vector; the public
+                # vector is the live tenants' blocks.
+                ans, bnd = self.plan.compact(ans), self.plan.compact(bnd)
+            else:
+                ts, ok, se, sv, me, mv, nsel, hist, n_fwd = outs
+                ans = bnd = None
+            wa = WindowAnswers(tick=ts, ok=ok, sum=se, sum_var=sv, mean=me,
+                               mean_var=mv, n_sampled=nsel, histogram=hist,
+                               answers=ans, bounds=bnd, n_forwarded=n_fwd)
+            return (PipelineState(tree=tree, tick=state.tick + epoch_ticks),
+                    wa)
 
     def step(self, state: PipelineState, key, values, strata, counts,
              budgets=None) -> tuple[PipelineState, WindowAnswers]:
@@ -424,7 +439,6 @@ def save_state(root, step: int, state: PipelineState, *,
     ranks). Save before handing the state to ``run_epoch``, which
     consumes it."""
     from repro_torch.checkpoint import manager
-    from repro_torch.obs.trace import span
 
     if pipeline is not None and spec is None:
         spec = pipeline.spec
@@ -457,7 +471,6 @@ def restore_state(root, compiled: CompiledPipeline, step: int | None = None
     other sampling semantics or slot routing would silently change every
     answer."""
     from repro_torch.checkpoint import manager
-    from repro_torch.obs.trace import span
 
     if step is None:
         step = manager.latest_step(root)

@@ -32,6 +32,7 @@ from repro_torch.core import prng, queries, sampling, srs, whs
 from repro_torch.core.types import IntervalBatch, QueryResult, StratumMeta
 from repro_torch.core.window import LevelState, TreeState, Window
 from repro_torch.device import resolve_device
+from repro_torch.obs.trace import get_tracer
 
 
 # --------------------------------------------------------------------------
@@ -452,24 +453,28 @@ def _build_epoch_fn(tick_fn, fanin, capacities, plan=None):
     value of the first tick; ingest is ``[T, fanin[0], width]``. The
     priorities of every level and the ``plan``'s sketch uniforms (from
     the root node's key at each tick) are drawn for the whole epoch up
-    front."""
+    front, in the span ``priorities``; each tick runs in a span
+    ``tick`` (``obs.trace``: recorded where the tracer records)."""
 
     def epoch(state: TreeState, key, t0: int, budgets, ing_v, ing_s, ing_n):
+        tracer = get_tracer()
         epoch_ticks = ing_v.shape[0]
-        ts = torch.arange(epoch_ticks, dtype=torch.int64,
-                          device=ing_v.device) + t0
-        prio = [epoch_priorities(key, ts, l, fanin[l], capacities[l])
-                for l in range(len(fanin))]
-        draws = None
-        if plan is not None:
-            draws = plan.draws(_node_key(key, ts, len(fanin) - 1, 0))
+        with tracer.span("priorities"):
+            ts = torch.arange(epoch_ticks, dtype=torch.int64,
+                              device=ing_v.device) + t0
+            prio = [epoch_priorities(key, ts, l, fanin[l], capacities[l])
+                    for l in range(len(fanin))]
+            draws = None
+            if plan is not None:
+                draws = plan.draws(_node_key(key, ts, len(fanin) - 1, 0))
         rows = []
         for i in range(epoch_ticks):
-            state, out = tick_fn(
-                state, t0 + i, budgets, ing_v[i], ing_s[i], ing_n[i],
-                [p[i] for p in prio],
-                None if draws is None else
-                tuple(None if d is None else d[i] for d in draws))
+            with tracer.span("tick", t=t0 + i):
+                state, out = tick_fn(
+                    state, t0 + i, budgets, ing_v[i], ing_s[i], ing_n[i],
+                    [p[i] for p in prio],
+                    None if draws is None else
+                    tuple(None if d is None else d[i] for d in draws))
             rows.append(out)
         stacked = tuple(torch.stack(col) for col in zip(*rows))
         return state, (ts.to(torch.int32),) + stacked

@@ -27,6 +27,7 @@ hops of (RTT/2 + forwarded bytes / link rate).
 from __future__ import annotations
 
 import argparse
+import functools
 import time
 
 import numpy as np
@@ -39,7 +40,7 @@ from repro_torch.core.tree import HostTree, accumulate_epoch_accounting
 from repro_torch.core import prng
 from repro_torch.data import stream as S
 from repro_torch.launch.mesh import make_data_mesh, spawn_ranks
-from repro_torch.obs.trace import span
+from repro_torch.obs.trace import get_tracer, span
 
 # §V-A WAN emulation constants.
 HOP_RTT_S = (0.020, 0.040, 0.080)   # source→L0, L0→L1, L1→root
@@ -169,6 +170,17 @@ class _CompiledDriver:
         self.sample_sizes = self.pipe.clamp_budgets(sizes)
 
 
+def _tracing_with_telemetry(fn):
+    """``fn`` with the default tracer recording for the call when it is
+    given ``telemetry=True``: its report renders the span totals."""
+    @functools.wraps(fn)
+    def call(*args, **kwargs):
+        with get_tracer().on(kwargs.get("telemetry", False)):
+            return fn(*args, **kwargs)
+    return call
+
+
+@_tracing_with_telemetry
 def run_pipeline(specs, *, fraction: float = 0.1, ticks: int,
                  capacity: int | None = None, num_sources: int = 8,
                  fanin=(4, 2, 1), interval_ticks=None,
@@ -427,7 +439,6 @@ def run_pipeline(specs, *, fraction: float = 0.1, ticks: int,
     if engine == "scan" and tree.pipe.telemetry_enabled:
         from repro_torch.obs.metrics import metrics_text
         from repro_torch.obs.telemetry import snapshot, tenant_rel_bounds
-        from repro_torch.obs.trace import get_tracer
 
         snap = snapshot(tree.state)
         snap["slot_rel_bound_mean"] = np.asarray(
@@ -470,6 +481,7 @@ def run_pipeline(specs, *, fraction: float = 0.1, ticks: int,
     }
 
 
+@_tracing_with_telemetry
 def run_spmd_pipeline(specs, *, fraction: float = 0.1, ticks: int,
                       n_devices: int = 1, mesh=None, queries=None,
                       seed: int = 0, mode: str = "whs",
@@ -632,7 +644,6 @@ def run_spmd_pipeline(specs, *, fraction: float = 0.1, ticks: int,
     if telemetry and pipe.plan is not None:
         from repro_torch.obs.metrics import metrics_text
         from repro_torch.obs.telemetry import snapshot, tenant_rel_bounds
-        from repro_torch.obs.trace import get_tracer
 
         snap = snapshot(state)
         snap["slot_rel_bound_mean"] = np.asarray(
@@ -734,7 +745,12 @@ def main(argv=None):
                     help="where the pipeline runs (default: the CUDA card; "
                          "it raises without one)")
     args = ap.parse_args(argv)
+    with get_tracer().on(bool(args.trace)):
+        return _main(args)
 
+
+def _main(args):
+    """``main``'s run of parsed arguments: the report, printed."""
     specs = stream_specs(args.dist)
     registry = None
     if args.queries:
@@ -836,8 +852,6 @@ def main(argv=None):
               f"{tel['bound_2sigma']:.3e} "
               f"(rel {tel['rel_bound_2sigma']:.4f}); eff fraction {fr}")
     if args.trace:
-        from repro_torch.obs.trace import get_tracer
-
         get_tracer().save(args.trace)
         print(f"  wrote {args.trace}")
     if args.json:

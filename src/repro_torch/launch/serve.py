@@ -210,6 +210,12 @@ def main(argv=None):
         ap.error(f"--requests {args.requests} < --batch {args.batch}: "
                  f"no serving batch would run (requests are served in "
                  f"whole batches)")
+    with get_tracer().on(bool(args.trace or args.telemetry)):
+        return _serve(args, n_batches)
+
+
+def _serve(args, n_batches: int):
+    """``main``'s run of parsed arguments: the report, printed."""
     dev = resolve_device(args.device)
     if args.serve_loop:
         return _serve_loop(args, dev)
@@ -409,22 +415,24 @@ def _mesh_plane(job: dict) -> dict:
     pipe = api.compile(telemetry_spec(capacity, job["fraction"],
                                       telemetry=job["telemetry"]),
                        mesh=mesh)
-    records = job["records"]
-    with span("ingest", ticks=len(records)):
-        flat = S.ticks_to_ingest(records, n_nodes=1, width=capacity)
-        batches = S.rows_to_interval_batch(
-            flat.values[:, 0], flat.strata[:, 0], flat.counts[:, 0],
-            NUM_CLASSES, width=-(-capacity // n) * n)
-    state = pipe.init()
-    with span("epoch_dispatch", ticks=len(records)):
-        state, wa = pipe.run_epoch(state, pipe.default_key, batches)
-    with span("block_until_ready"):
-        rows = pipe.rows(wa)
-    return dict(rows=rows, layout=pipe.query_layout("dashboard"),
-                k=pipe.plan.k, snapshot=obs_telemetry.snapshot(state),
-                metrics=(metrics_text(pipeline=pipe, state=state,
-                                      tracer=get_tracer())
-                         if job["metrics"] else None))
+    # a rank process reports its spans in its metrics as main's does
+    with get_tracer().on(job["telemetry"]):
+        records = job["records"]
+        with span("ingest", ticks=len(records)):
+            flat = S.ticks_to_ingest(records, n_nodes=1, width=capacity)
+            batches = S.rows_to_interval_batch(
+                flat.values[:, 0], flat.strata[:, 0], flat.counts[:, 0],
+                NUM_CLASSES, width=-(-capacity // n) * n)
+        state = pipe.init()
+        with span("epoch_dispatch", ticks=len(records)):
+            state, wa = pipe.run_epoch(state, pipe.default_key, batches)
+        with span("block_until_ready"):
+            rows = pipe.rows(wa)
+        return dict(rows=rows, layout=pipe.query_layout("dashboard"),
+                    k=pipe.plan.k, snapshot=obs_telemetry.snapshot(state),
+                    metrics=(metrics_text(pipeline=pipe, state=state,
+                                          tracer=get_tracer())
+                             if job["metrics"] else None))
 
 
 def _serve_loop(args, dev):
