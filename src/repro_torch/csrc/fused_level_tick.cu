@@ -50,13 +50,30 @@
 //   Up to kRegStrata strata its per-stratum arrays are registers (the
 //   loops unrolled), above they live in a per-node global scratch that
 //   the wrapper allocates (kScratchArrays words a stratum), beside an int
-//   per slot for the tie lists. The neyman moments keep their
-//   buffer-order sums on rank 0, one thread a stratum.
+//   per slot for the tie lists.
+// - The neyman moments (each stratum's sum of v and of v*v over its valid
+//   items, in buffer order, bitwise the plain version's item-order
+//   scatter) run on rank 0's CTA between the first two cluster barriers.
+//   Each sum is a chain of dependent f32 adds, so the phase's floor is
+//   the largest stratum's item count times one add's latency
+//   (tools/fadd_chain.py: about 2.05 ns). It walks only the slots up to
+//   the node's last valid one, in tiles: 8 partition warps stage a tile
+//   (cp.async, 16-byte chunks, two slots) and sort it stably by stratum
+//   in shared memory (ranks by ballots up to 32 strata a window, by
+//   __match_any_sync above, then a scan over the strata), while a pair of
+//   fold warps on two other schedulers folds the tile before: lane s of
+//   one adds stratum s's run of values, of the other their squares. Named
+//   barriers hand the two sorted tiles back and forth. Strata go 32 a
+//   pair (up to 4 pairs), in windows of that many. The phase's shared
+//   memory sits after the state and is requested for neyman only; the
+//   tile shrinks where the state leaves less room (stds_plan). The phase
+//   is its own instantiation of the kernel (kMoments), so the other
+//   policies run the kernel's code without it.
 // What is left (tools/fused_tick_phases.py): seven cluster barriers of
 // about 0.85 us each, the allocation's thread, and per digit a histogram,
 // the remote adds and the choice, each a dependent step of well under a
 // microsecond; the passes over the slots are a small part at the
-// testbed's sizes.
+// testbed's sizes. With neyman, the moments' chain comes first.
 //
 // Tie law: items with u > tau are kept; items with u == tau (exact f32
 // ties) are kept in buffer order while their rank within the stratum is at
@@ -141,6 +158,7 @@ enum ScratchArray {
 // build runs a little longer than the kernel it measures).
 constexpr int kProbeSlots = 32;
 constexpr int kProbePasses = 6;  // passes with probes: slots 7 .. 24
+constexpr int kProbeStds = 25;   // rank 0: the neyman moments' end
 #ifdef REPRO_PHASE_PROBE
 __device__ long long* g_probe;
 __device__ __forceinline__ long long global_ns() {
@@ -509,28 +527,330 @@ __device__ bool allocate_node(float size, int policy, int X, float* scratch) {
   return sat;
 }
 
-// Per-stratum value standard deviations over the node's valid items
-// (neyman only): one thread per stratum adds the values in buffer order,
-// the order of the plain version's scatter-add, so the result is bitwise
-// the same.
-__device__ void stds_phase(const float* values, const int* strata,
-                           const uint8_t* valid, int m, int X,
-                           const float* counts, float* stds) {
-  for (int s = threadIdx.x; s < X; s += kThreads) {
-    float s1 = 0.f, s2 = 0.f;
-    for (int k = 0; k < m; ++k) {
-      if (valid[k] && strata[k] == s) {
-        const float v = values[k];
-        s1 = s1 + v;
-        s2 = s2 + v * v;
-      }
-    }
-    const float safe = fmaxf(counts[s], 1.f);
-    const float mean = s1 / safe;
-    // The reference's compiled code contracts this into one FMA.
-    const float var = fmaxf(__fmaf_rn(-mean, mean, s2 / safe), 0.f);
-    stds[s] = sqrtf(var);
+// ---- the neyman moments: staged, sorted by stratum, folded in order ----
+constexpr int kFoldGroupsMax = 4; // fold warp pairs at most (32 strata each)
+constexpr int kPartWarps = 8;     // partition warps
+constexpr int kTileRounds = 8;    // 32-item rounds of a partition warp a tile
+constexpr int kSmemTop = 231424;  // dynamic shared memory at most: 227 KB
+                                  // less 1 KB for the static
+// Named barriers (0 is __syncthreads): the partition warps among
+// themselves; sorted tile b filled (kBarFull + b), emptied (kBarEmpty + b);
+// the fold warps among themselves.
+enum NamedBarrier { kBarPart = 1, kBarFull = 2, kBarEmpty = 4, kBarFold = 6 };
+
+struct StdsPlan {
+  int groups, rounds;  // fold warps 2 * groups; tile kPartWarps * rounds
+                       // * 32 items
+};
+
+__host__ __device__ inline int state_bytes(int X) {
+  return (kStateArrays + 2 * (1 << digit_bits(X))) * X * (int)sizeof(int);
+}
+
+// The phase's shared memory after the state: 16 bytes of alignment, two
+// staging slots (values, strata: the tile's 16-byte chunks, T + 8 words;
+// valid flags, T + 32 bytes), two sorted tiles (runs padded to 4 items),
+// two run tables (start and count a stratum), the partition warps' rows
+// of counts, the scan's warp totals, the squares' sums handed over.
+__host__ __device__ inline int stds_bytes(int X, StdsPlan p) {
+  const int P = kPartWarps, T = 32 * P * p.rounds;
+  const int W = X < 32 * p.groups ? X : 32 * p.groups;
+  return 16 + 2 * (8 * (T + 8) + T + 32) + 2 * 4 * (T + 4 * W) +
+         4 * (4 * W + P * W + P + W);
+}
+
+// The most fold warp pairs (X / 32, at most kFoldGroupsMax), then the
+// largest tile, that fit beside the state; one pair and one round fit at
+// every X.
+__host__ __device__ inline StdsPlan stds_plan(int X) {
+  const int most = (X + 31) / 32;
+  for (int g = most < kFoldGroupsMax ? most : kFoldGroupsMax; g >= 1; --g)
+    for (int r = kTileRounds; r >= 1; --r)
+      if (state_bytes(X) + stds_bytes(X, {g, r}) <= kSmemTop) return {g, r};
+  return {1, 1};
+}
+
+__device__ __forceinline__ void named_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+__device__ __forceinline__ void named_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// Inclusive sum of v over the warp's lanes.
+__device__ __forceinline__ int warp_scan(int v, int lane) {
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int t = __shfl_up_sync(kFull, v, off);
+    if (lane >= off) v += t;
   }
+  return v;
+}
+
+// Starts asynchronous copies of the 16-byte chunks that cover bytes
+// [src, src + bytes) into dst, chunk i by thread i0 + k * step. A chunk
+// that holds a byte of the buffer lies in the buffer's page, so the bytes
+// it reads around the buffer exist; the reader skips them.
+__device__ __forceinline__ void copy_span(void* dst, const void* src,
+                                          int bytes, int i0, int step) {
+  const uintptr_t a = (uintptr_t)src & ~(uintptr_t)15;
+  const int chunks = (int)(((uintptr_t)src + bytes - a + 15) >> 4);
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  for (int i = i0; i < chunks; i += step)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                     d + 16 * i),
+                 "l"(a + 16 * (uintptr_t)i)
+                 : "memory");
+}
+
+__device__ __forceinline__ int shift_of(const void* p, int size) {
+  return (int)(((uintptr_t)p & 15) / size);
+}
+
+// acc + v, or acc + v * v (not contracted: -fmad=false).
+template <bool kSquare>
+__device__ __forceinline__ float add_term(float acc, float v) {
+  return kSquare ? acc + v * v : acc + v;
+}
+
+template <bool kSquare>
+__device__ __forceinline__ float add_term4(float acc, const float4 v) {
+  acc = add_term<kSquare>(acc, v.x);
+  acc = add_term<kSquare>(acc, v.y);
+  acc = add_term<kSquare>(acc, v.z);
+  return add_term<kSquare>(acc, v.w);
+}
+
+// acc plus the terms of p[0], ..., p[n - 1], left to right, the next 16
+// items' float4 loads issued before the current 16 items' adds; p is
+// 16-byte aligned.
+template <bool kSquare>
+__device__ __forceinline__ float fold_terms(const float* p, int n,
+                                            float acc) {
+  const float4* q = reinterpret_cast<const float4*>(p);
+  const int n4 = n >> 2;
+  int i = 0;
+  if (n4 >= 4) {
+    float4 cur[4], nxt[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) cur[j] = q[j];
+    for (i = 4; i + 4 <= n4; i += 4) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) nxt[j] = q[i + j];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc = add_term4<kSquare>(acc, cur[j]);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) cur[j] = nxt[j];
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc = add_term4<kSquare>(acc, cur[j]);
+  }
+  for (; i < n4; ++i) acc = add_term4<kSquare>(acc, q[i]);
+  for (int k = n4 * 4; k < n; ++k) acc = add_term<kSquare>(acc, p[k]);
+  return acc;
+}
+
+// Per-stratum value standard deviations over the node's valid items
+// (neyman only), on one CTA (rank 0's), over the slots [0, m) that hold
+// them all: each stratum's values are added in buffer order, the order of
+// the plain version's scatter-add, so the result is bitwise the same.
+// kPartWarps warps stage and sort, tile by tile (T items: 32 * rounds
+// consecutive items a partition warp), window by window (W strata); step
+// g of the sequence (window, tile) uses staging slot, sorted tile and run
+// table g % 2. The sums of the values and of their squares are two
+// independent chains, which a pair of fold warps takes apart, so that
+// each issues about half an instruction a cycle and waits on its add
+// chain only. Warp w runs on scheduler w % 4: the fold warps are those
+// with w % 4 < 2 (pair j: warps 4j, 4j + 1), the partition warps the
+// others, so that no partition warp takes a fold warp's issue slots.
+// Out of line: inlined, it and the rest of the kernel spilled each
+// other's registers and it ran slower. smem: the phase's shared memory
+// (stds_bytes), after the state.
+__device__ __noinline__ void stds_phase(const float* values,
+                                        const int* strata,
+                                        const uint8_t* valid, int m, int X,
+                                        const float* counts, float* stds,
+                                        unsigned char* smem) {
+  const StdsPlan plan = stds_plan(X);
+  const int F = 2 * plan.groups, P = kPartWarps, R = plan.rounds;
+  const int W = min(X, 32 * plan.groups), T = 32 * P * R, ST = T + 4 * W;
+  const int both = 32 * (F + P);  // the fold and partition warps' threads
+  unsigned char* at = reinterpret_cast<unsigned char*>(
+      ((uintptr_t)smem + 15) & ~(uintptr_t)15);
+  float* sv = reinterpret_cast<float*>(at);  // [2][T + 8]
+  int* sid = reinterpret_cast<int*>(sv + 2 * (T + 8));  // [2][T + 8]
+  uint8_t* sval = reinterpret_cast<uint8_t*>(sid + 2 * (T + 8));
+  float* sorted = reinterpret_cast<float*>(sval + 2 * (T + 32));  // [2][ST]
+  int* runs = reinterpret_cast<int*>(sorted + 2 * ST);  // [2][start W, n W]
+  int* rows = runs + 4 * W;                              // [P][W]
+  int* wsum = rows + P * W;                              // [P]
+  float* sq = reinterpret_cast<float*>(wsum + P);        // [W]
+  const int nt = (m + T - 1) / T;  // tiles of the slots
+  const int steps = nt * ((X + W - 1) / W);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+
+  if ((warp & 2) == 0) {
+    // The fold: lane k of warps 4j and 4j + 1 adds the values and their
+    // squares of stratum lo + 32j + k over its run of each sorted tile.
+    if ((warp >> 2) >= plan.groups) return;
+    const bool square = warp & 1;
+    const int k = (warp >> 2) * 32 + lane;
+    int g = 0;
+    for (int lo = 0; lo < X; lo += W) {
+      float acc = 0.f;
+      for (int t = 0; t < nt; ++t, ++g) {
+        const int b = g & 1;
+        named_sync(kBarFull + b, both);
+        if (k < W) {
+          const float* run = sorted + b * ST + runs[b * 2 * W + k];
+          const int n = runs[b * 2 * W + W + k];
+          acc = square ? fold_terms<true>(run, n, acc)
+                       : fold_terms<false>(run, n, acc);
+        }
+        if (g + 2 < steps) named_arrive(kBarEmpty + b, both);
+      }
+      if (square && k < W) sq[k] = acc;
+      named_sync(kBarFold, 32 * F);
+      const int s = lo + k;
+      if (!square && k < W && s < X) {
+        const float s1 = acc, s2 = sq[k];
+        const float safe = fmaxf(counts[s], 1.f);
+        const float mean = s1 / safe;
+        // The reference's compiled code contracts this into one FMA.
+        const float var = fmaxf(__fmaf_rn(-mean, mean, s2 / safe), 0.f);
+        stds[s] = sqrtf(var);
+      }
+      named_sync(kBarFold, 32 * F);  // sq read before the next window's
+    }
+    return;
+  }
+
+  // The partition: stage, rank, place, scatter.
+  const int pw = (warp >> 2) * 2 + (warp & 1), pt = 32 * pw + lane;
+  const int np = 32 * P;
+  const unsigned below = (1u << lane) - 1u;
+  int* mine = rows + pw * W;  // this warp's row
+  // Up to 32 strata a window, a key's nb bits group a round's lanes by
+  // ballots, and lane k counts stratum k.
+  const bool narrow = W <= 32;
+  const int nb = 32 - __clz(W - 1);
+  auto stage = [&](int g, int slot) {
+    if (g < steps) {
+      const int base = (g % nt) * T, len = min(T, m - base);
+      copy_span(sv + slot * (T + 8), values + base, 4 * len, pt, np);
+      copy_span(sid + slot * (T + 8), strata + base, 4 * len, pt, np);
+      copy_span(sval + slot * (T + 32), valid + base, len, pt, np);
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  };
+  stage(0, 0);
+  stage(1, 1);
+  int g = 0;
+  for (int lo = 0; lo < X; lo += W) {
+    const int hi = min(lo + W, X);
+    for (int t = 0; t < nt; ++t, ++g) {
+      const int b = g & 1, base = t * T, len = min(T, m - base);
+      // This step's copies are in (the next step's may still fly).
+      asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+      named_sync(kBarPart, np);
+      const float* xv = sv + b * (T + 8) + shift_of(values + base, 4);
+      const int* xs = sid + b * (T + 8) + shift_of(strata + base, 4);
+      const uint8_t* xk = sval + b * (T + 32) + shift_of(valid + base, 1);
+      // 1. Each item's rank among the earlier items of its stratum in its
+      // warp's slice, and the warp's count of each stratum in its row.
+      float x[kTileRounds];
+      int key[kTileRounds], rank[kTileRounds];
+#pragma unroll
+      for (int r = 0; r < kTileRounds; ++r) {
+        const int k = pw * 32 * R + r * 32 + lane;
+        const bool in = r < R && k < len && xk[k] != 0;
+        const int s = in ? xs[k] : -1;
+        key[r] = (in && s >= lo && s < hi) ? s - lo : -1;
+        x[r] = in ? xv[k] : 0.f;
+      }
+      if (narrow) {
+        int cnt = 0;  // lane k: the warp's count of stratum k so far
+#pragma unroll
+        for (int r = 0; r < kTileRounds; ++r) {
+          if (r >= R) continue;
+          unsigned peers = __ballot_sync(kFull, key[r] >= 0);
+          unsigned own = lane < W ? peers : 0u;
+          for (int bit = 0; bit < nb; ++bit) {
+            const unsigned set = __ballot_sync(kFull, (key[r] >> bit) & 1);
+            peers &= (key[r] >> bit) & 1 ? set : ~set;
+            own &= (lane >> bit) & 1 ? set : ~set;
+          }
+          rank[r] = __shfl_sync(kFull, cnt, key[r] & 31) +
+                    __popc(peers & below);
+          cnt += __popc(own);
+        }
+        if (lane < W) mine[lane] = cnt;
+      } else {
+        for (int k = lane; k < W; k += 32) mine[k] = 0;
+        __syncwarp();
+#pragma unroll
+        for (int r = 0; r < kTileRounds; ++r) {
+          if (r >= R) continue;
+          const bool ok = key[r] >= 0;
+          const unsigned peers = __match_any_sync(kFull, key[r]);
+          const int before = ok ? mine[key[r]] : 0;
+          __syncwarp();
+          if (ok && lane == __ffs(peers) - 1)
+            mine[key[r]] = before + __popc(peers);
+          __syncwarp();
+          rank[r] = before + __popc(peers & below);
+        }
+      }
+      named_sync(kBarPart, np);  // rows counted, slot b read
+      stage(g + 2, b);
+      // 2. Thread pt < W: its stratum's count n, its run's start (runs one
+      // after another, each padded to 4 items), and in row w where warp
+      // w's first item of the stratum goes. Sorted tile b and run table b
+      // are free once the fold of step g - 2 is done.
+      if (g >= 2) named_sync(kBarEmpty + b, both);
+      int off[kPartWarps];
+      int n = 0, my_start = 0;
+      if (pt < W) {
+#pragma unroll
+        for (int w = 0; w < kPartWarps; ++w) {
+          off[w] = n;
+          n += rows[w * W + pt];
+        }
+      }
+      const int padded = (n + 3) & ~3;
+      if (narrow) {
+        if (pw == 0) my_start = warp_scan(padded, lane) - padded;
+      } else {
+        const int incl = warp_scan(padded, lane);
+        if (lane == 31) wsum[pw] = incl;
+        named_sync(kBarPart, np);
+        if (pw == 0) {
+          const int v = lane < P ? wsum[lane] : 0;
+          const int e = warp_scan(v, lane) - v;
+          if (lane < P) wsum[lane] = e;
+        }
+        named_sync(kBarPart, np);
+        my_start = wsum[pw] + incl - padded;
+      }
+      if (pt < W) {
+#pragma unroll
+        for (int w = 0; w < kPartWarps; ++w)
+          rows[w * W + pt] = my_start + off[w];
+        runs[b * 2 * W + pt] = my_start;
+        runs[b * 2 * W + W + pt] = n;
+      }
+      named_sync(kBarPart, np);
+      // 3. The stable sort: each item at its warp's place in its run plus
+      // its rank.
+      float* out = sorted + b * ST;
+#pragma unroll
+      for (int r = 0; r < kTileRounds; ++r)
+        if (key[r] >= 0) out[mine[key[r]] + rank[r]] = x[r];
+      named_arrive(kBarFull + b, both);
+    }
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
 // Adds this CTA's histogram h (w = 1 << wb bins a stratum, at stride B;
@@ -832,7 +1152,11 @@ __device__ void compact_phase(const float* values, const int* strata,
 }
 
 // grid n * cs, clusters of cs CTAs, block kThreads: cluster i owns node i,
-// CTA r of it the r-th slice of the node's buffer.
+// CTA r of it the r-th slice of the node's buffer. kMoments: the neyman
+// moments phase (policy == kNeyman); the other policies' instantiation
+// has none of its code, so their registers and instructions are those of
+// the kernel without it.
+template <bool kMoments>
 __global__ void __launch_bounds__(kThreads, 1)
 fused_level_tick_kernel(const float* __restrict__ values_all,
                         const int* __restrict__ strata_all,
@@ -879,9 +1203,12 @@ fused_level_tick_kernel(const float* __restrict__ values_all,
   if (rank == 0) {
     // Allocation, then the Alg. 2 lines 12-20 + Eq. 9 weight update.
     const float* counts = scratch + kCounts * X;
-    if (policy == kNeyman)
-      stds_phase(values, strata, valid, cap, X, counts, scratch + kStds * X);
+    if (kMoments)
+      stds_phase(values, strata, valid, last_valid + 1, X, counts,
+                 scratch + kStds * X,
+                 reinterpret_cast<unsigned char*>(st.carry + X));
     __syncthreads();
+    PROBE(kProbeStds);
     if (tid == 0)
       f.saturated = allocate_node(sample_size[0], policy, X, scratch) ? 1 : 0;
     __syncthreads();
@@ -967,9 +1294,12 @@ fused_select_kernel(const float* __restrict__ prio,
   PROBE(kProbeSlots - 1);
 }
 
-cudaError_t launch_cluster_setup(const void* kernel, int X, size_t& smem) {
-  const int B = 1 << digit_bits(X);
-  smem = (size_t)(kStateArrays + 2 * B) * X * sizeof(int);
+// smem: the state's dynamic shared memory, and the neyman moments' with
+// extra.
+cudaError_t launch_cluster_setup(const void* kernel, int X, bool extra,
+                                 size_t& smem) {
+  smem = (size_t)state_bytes(X);
+  if (extra) smem += (size_t)stds_bytes(X, stds_plan(X));
   return cudaFuncSetAttribute(kernel,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)smem);
@@ -1027,13 +1357,16 @@ int fused_level_tick_launch(const float* values, const int* strata,
                             float* w_out, float* c_out, cudaStream_t stream) {
   if (X < 1 || X > kMaxStrata || cs < 1 || cs > kMaxCluster)
     return static_cast<int>(cudaErrorInvalidValue);
+  const bool moments = policy == kNeyman;
+  auto* kernel = moments ? fused_level_tick_kernel<true>
+                         : fused_level_tick_kernel<false>;
   size_t smem;
   cudaError_t err = launch_cluster_setup(
-      reinterpret_cast<const void*>(fused_level_tick_kernel), X, smem);
+      reinterpret_cast<const void*>(kernel), X, moments, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg = cluster_config(n, cs, smem, stream, &attr);
-  err = cudaLaunchKernelEx(&cfg, fused_level_tick_kernel, values, strata,
+  err = cudaLaunchKernelEx(&cfg, kernel, values, strata,
                            valid, prio, w_in, c_in, sample_size, cap, X,
                            digit_bits(X), out_cap, policy, async_calibration,
                            scratch, list, keep, values_c, strata_c, n_keep,
@@ -1050,7 +1383,7 @@ int fused_select_launch(const float* prio, const int* strata,
     return static_cast<int>(cudaErrorInvalidValue);
   size_t smem;
   cudaError_t err = launch_cluster_setup(
-      reinterpret_cast<const void*>(fused_select_kernel), X, smem);
+      reinterpret_cast<const void*>(fused_select_kernel), X, false, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg = cluster_config(1, cs, smem, stream, &attr);

@@ -17,8 +17,10 @@ from repro_torch.kernels.fused_level_tick import ref
 
 # Per-stratum cluster state sits in each CTA's dynamic shared memory: five
 # words a stratum and two radix-digit histograms of 2^b words a stratum,
-# within _SMEM_WORDS (208 KB; b = 2 at 4,096 strata). The tie lists and,
-# above 4 strata, the allocation's arrays live in global scratch.
+# within _SMEM_WORDS (208 KB; b = 2 at 4,096 strata); with neyman the
+# launch adds the moments phase's tiles (stds_plan, up to 227 KB in all).
+# The tie lists and, above 4 strata, the allocation's arrays live in global
+# scratch.
 MAX_STRATA = 4096
 _POLICIES = {"fair": 0, "proportional": 1, "neyman": 2}
 _STATE_ARRAYS, _SMEM_WORDS = 5, 53248

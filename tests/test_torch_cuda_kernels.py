@@ -21,7 +21,9 @@ offsets that force its scalar path, on NaN priorities and -0.0 against
 at every change of the radix digit's width up to 4,096 strata, on caps
 that the cluster of CTAs does not divide or that are smaller than it, on
 strata whose priorities are all equal or that hold no valid item, and at
-``n_eff = 1``. ``quantile_compact`` is held on intervals the sketch builds
+``n_eff = 1``; the neyman moments at ``skew.peak-f10``'s two launches
+(stratum sums past 2^24), at 600 strata and over valid items with holes.
+``quantile_compact`` is held on intervals the sketch builds
 (``blocked_cumsum``), where a target can fall in two slots.
 ``flash_attention`` is held to its plain version within
 ``FLASH_F32_TOL`` in f32 and one bf16 ulp in bf16 (see
@@ -61,13 +63,30 @@ def _bits(a, b, name=""):
                                   b.reshape(-1).view(np.uint8), err_msg=name)
 
 
-def _level(seed, n, cap, x, fill, packed, ties=False):
+# approxiot-skew's stream (bench/configs/approxiot-skew.json): the shares
+# and Poisson means of its four sub-streams.
+SKEW_SHARES = (0.8, 0.1989, 0.001, 0.0001)
+SKEW_LAMBDAS = (10.0, 100.0, 1e3, 1e7)
+
+
+def _level(seed, n, cap, x, fill, packed, ties=False, skew=False):
+    """A stacked level on the CPU. ``skew``: strata and values by the
+    skewed stream's law (x = 4), each node filled to within 1% of
+    ``fill``, so that stratum 0's sums pass 2^24 at the cell's sizes;
+    else normal values over x uniform strata, 70-100% of ``fill``."""
     rng = np.random.default_rng(seed)
-    vals = rng.normal(100, 25, (n, cap)).astype(np.float32)
-    vals[:, ::7] *= 400.0
-    strata = rng.integers(0, x, (n, cap)).astype(np.int32)
-    counts = rng.integers(max(int(0.7 * fill * cap), 0), int(fill * cap) + 1,
-                          n)
+    if skew:
+        strata = rng.choice(len(SKEW_SHARES), (n, cap),
+                            p=SKEW_SHARES).astype(np.int32)
+        vals = rng.poisson(np.asarray(SKEW_LAMBDAS)[strata]).astype(
+            np.float32)
+        low = int(0.99 * fill * cap)
+    else:
+        vals = rng.normal(100, 25, (n, cap)).astype(np.float32)
+        vals[:, ::7] *= 400.0
+        strata = rng.integers(0, x, (n, cap)).astype(np.int32)
+        low = max(int(0.7 * fill * cap), 0)
+    counts = rng.integers(low, int(fill * cap) + 1, n)
     if packed:
         valid = np.arange(cap)[None, :] < counts[:, None]
     else:
@@ -102,6 +121,17 @@ GRID = [
     (2, 7, 3, 4, 0.9, False, "neyman", 3, True),
     (4, 1, 1, 1, 1.0, True, "fair", 1, False),
 ]
+# (n, cap, X, budget, fill, packed, allocation, out_capacity, ties, skew):
+# skew.peak-f10's neyman launches, whose moments are the longest item-order
+# chains the kernel sees.
+SKEW_GRID = [
+    (4, 2700032, 4, 270003, 0.74, True, "neyman", 270003, False, True),  # L0
+    (2, 540006, 4, 54000, 1.0, True, "neyman", 54000, False, True),      # L1
+    # more strata than a CTA has threads, about 1M valid items
+    (1, 1200000, 600, 100000, 0.9, True, "neyman", 100000, False, False),
+    # valid items not a prefix: the walk to the last one skips holes
+    (2, 540006, 4, 54000, 0.9, False, "neyman", 54000, False, True),
+]
 
 
 @pytest.fixture
@@ -113,12 +143,15 @@ def cuda_device():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize(
-    "n,cap,x,budget,fill,packed,allocation,out_cap,ties", GRID)
+    "n,cap,x,budget,fill,packed,allocation,out_cap,ties,skew",
+    [(*row, False) for row in GRID] + SKEW_GRID,
+    ids=["-".join(map(str, row)) for row in GRID + SKEW_GRID])
 def test_fused_level_tick_kernel_matches_plain(cuda_device, n, cap, x,
                                                budget, fill, packed,
-                                               allocation, out_cap, ties):
+                                               allocation, out_cap, ties,
+                                               skew):
     arrs = [torch.from_numpy(a) for a in _level(n + cap, n, cap, x, fill,
-                                                packed, ties)]
+                                                packed, ties, skew)]
     size = torch.tensor(float(budget))
     want = tft_ref.fused_level_tick(*arrs, size, x, out_cap,
                                     allocation=allocation)
