@@ -8,8 +8,9 @@ KERNEL = "fused_level_tick_kernel"
 ROW_BYTES = 8
 
 
-def least_bytes(flows) -> float:
+def least_bytes(flows, config) -> float:
     """``flows``: items in and rows out at each level, summed over the
-    traced ticks (root last)."""
+    traced ticks (root last); ``config``, the cell's configuration, is
+    not read."""
     return float(sum(ROW_BYTES * (i + o) for i, o in
                      zip(flows["level_in"][:-1], flows["level_out"][:-1])))

@@ -14,6 +14,14 @@ epochs on the cell's own shapes (the first run in a checkout builds the
 CUDA kernels there, under ``build/``). After the window, the device's
 memory peak is read, the state is copied to the host and the program's
 tensors are freed; then the plain reference checks the run.
+
+A configuration with ``tenants`` (``harness/tenants.py``) runs their
+standing queries at the root: the readback also moves each window's
+``answers`` and ``bounds`` to the host, as a dashboard publishes them,
+and after it each epoch's sketch state is cloned on the device (the
+span ``bench.snapshot``), so that the check can start a drawn epoch
+from the program's own state (``compare.check_queries``; the first two
+epochs chain from ``init`` in the reference's own state).
 """
 from __future__ import annotations
 
@@ -24,7 +32,7 @@ import time
 import numpy as np
 import torch
 
-from harness import compare, guard, peaks, registry, trace, traffic
+from harness import compare, guard, peaks, registry, tenants, trace, traffic
 
 WARM_EPOCHS = 2
 # A traced run traces this many seconds of its window (at least one
@@ -32,17 +40,22 @@ WARM_EPOCHS = 2
 TRACE_SECONDS = 2.0
 # Windows, beside the run's last, that the full reference recomputes.
 CHECKED_WINDOWS = 16
+# Window epochs, beside the first two epochs and the last, whose
+# standing queries the reference recomputes (a cell with tenants).
+CHECKED_EPOCHS = 4
 FIELDS = ("tick", "ok", "sum", "sum_var", "mean", "mean_var", "n_sampled",
           "histogram", "n_forwarded")
+TENANT_FIELDS = FIELDS + ("answers", "bounds")
 
 
 class Context:
     """What a per-layer reader reads: the trace, the harness's own host
-    clock per epoch, the tree's flows over the traced ticks, peaks."""
+    clock per epoch and over the traced window, the tree's flows over the
+    traced ticks, peaks, and the cell's configuration."""
 
-    def __init__(self, tr, host, flows, windows, peaks_):
+    def __init__(self, tr, host, flows, windows, peaks_, config=None):
         self.trace, self.host, self.flows = tr, host, flows
-        self.windows, self.peaks = windows, peaks_
+        self.windows, self.peaks, self.config = windows, peaks_, config
 
 
 def build_spec(cfg: dict, mix: dict, seed: int):
@@ -59,7 +72,13 @@ def build_spec(cfg: dict, mix: dict, seed: int):
                             allocation=samp["allocation"],
                             fraction=float(mix["fraction"])),
         seed=int(seed) % (1 << 31),
-        telemetry=TelemetrySpec(enabled=bool(cfg["telemetry"])))
+        telemetry=TelemetrySpec(enabled=bool(cfg["telemetry"])),
+        **({"tenants": tenants.specs(cfg)} if cfg.get("tenants") else {}))
+
+
+def readback_fields(spec) -> tuple:
+    """What the timed readback moves to the host."""
+    return TENANT_FIELDS if spec.tenants else FIELDS
 
 
 def reference_tree(ref, cfg: dict, mix: dict):
@@ -94,9 +113,11 @@ def _host_state(state) -> dict:
 
 def _flows(epochs, pool, n_levels: int) -> dict:
     """Items in and rows out at each level over ``epochs``, from the
-    ingest counts and the published answers."""
+    ingest counts and the published answers; the ticks, and those in
+    which the root sampled anything."""
     lin = np.zeros(n_levels)
     lout = np.zeros(n_levels)
+    ticks = sampled_ticks = 0
     for ep in epochs:
         a = ep["answers"]
         fwd = a["n_forwarded"].astype(np.float64).sum(0)
@@ -104,7 +125,10 @@ def _flows(epochs, pool, n_levels: int) -> dict:
         lin[1:] += fwd
         lout[:-1] += fwd
         lout[-1] += float(a["n_sampled"].sum())
-    return {"level_in": list(lin), "level_out": list(lout)}
+        ticks += len(a["tick"])
+        sampled_ticks += int(np.count_nonzero(a["n_sampled"]))
+    return {"level_in": list(lin), "level_out": list(lout), "ticks": ticks,
+            "sampled_ticks": sampled_ticks}
 
 
 def run(workload: str, seed: int, seconds: float, traced: bool, device,
@@ -133,7 +157,9 @@ def run(workload: str, seed: int, seconds: float, traced: bool, device,
     pipe = compile_pipeline(spec, device=device)
     state = pipe.init()
     key = pipe.default_key
+    fields = readback_fields(spec)
     epochs: list[dict] = []
+    snapshots: list = []
 
     def epoch(in_window: bool):
         nonlocal state
@@ -144,8 +170,11 @@ def run(workload: str, seed: int, seconds: float, traced: bool, device,
                                        pool.strata[e], pool.counts[e])
         t_disp = time.perf_counter()
         with torch.profiler.record_function("bench.readback"):
-            ans = {f: getattr(wa, f).cpu().numpy() for f in FIELDS}
+            ans = {f: getattr(wa, f).cpu().numpy() for f in fields}
         t_read = time.perf_counter()
+        if spec.tenants:
+            with torch.profiler.record_function("bench.snapshot"):
+                snapshots.append(tenants.clone(state.tree.qstate))
         epochs.append({"pool": e, "window": in_window, "answers": ans,
                        "t_call": t_call, "t_disp": t_disp,
                        "t_read": t_read})
@@ -198,11 +227,12 @@ def run(workload: str, seed: int, seconds: float, traced: bool, device,
     breakdown = None
     if traced:
         host = {"dispatch_s": [ep["t_disp"] - ep["t_call"] for ep in win],
-                "readback_s": [ep["t_read"] - ep["t_disp"] for ep in win]}
+                "readback_s": [ep["t_read"] - ep["t_disp"] for ep in win],
+                "window_s": t_end - t_start}
         tr = trace.read(prof)
         del prof
         ctx = Context(tr, host, _flows(win, pool, len(tree.fanin)), windows,
-                      peaks.for_device(kind))
+                      peaks.for_device(kind), cfg)
         for m in registry.cell_metrics(bm, workload, traced=True):
             v = registry.metric_reader(m["name"]).read(ctx)
             if v is not None and math.isfinite(v):
@@ -219,10 +249,17 @@ def run(workload: str, seed: int, seconds: float, traced: bool, device,
                                                        95)),
                   "setup_s": setup_s}
         for m in registry.cell_metrics(bm, workload, traced=False):
-            metrics[m["name"]] = {"value": values[m["name"]],
+            metrics[m["name"]] = {"value": values[registry.quantity(m)],
                                   "unit": m["unit"]}
 
     final = _host_state(state)
+    if spec.tenants:
+        checked = compare.draw_epochs(
+            [i for i, ep in enumerate(epochs) if ep["window"]],
+            len(epochs) - 1, seed, CHECKED_EPOCHS)
+        q_states = {e: tenants.host_state(snapshots[e], pipe.plan)
+                    for e in {e - 1 for e in checked if e} | set(checked)}
+        del snapshots
     del state, pipe
     if device.type == "cuda":
         torch.cuda.empty_cache()
@@ -232,6 +269,15 @@ def run(workload: str, seed: int, seconds: float, traced: bool, device,
                                 CHECKED_WINDOWS)
     print(f"output check {time.perf_counter() - t_check:.3f} s",
           file=sys.stderr)
+    if spec.tenants:
+        t_check = time.perf_counter()
+        qref = registry.reference(cfg["query_reference"])
+        numbers.update(compare.check_queries(
+            ref, tree, ref.root_key(spec.seed), pool, epochs, qref,
+            qref.Plan(cfg["tenants"], tree.num_strata), q_states, checked,
+            device))
+        print(f"query check {time.perf_counter() - t_check:.3f} s "
+              f"(epochs {checked})", file=sys.stderr)
     result = {"correct": compare.verdict(numbers, limits),
               "attempted": windows, "failed": windows - published,
               "metrics": metrics, "device": dev}

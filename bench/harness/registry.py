@@ -10,6 +10,9 @@ configurations and metrics. Beside it, under ``bench/``:
   compares in that cell;
 * ``metrics/<metric>.py``: the reader of one per-layer metric, a
   function ``read(ctx) -> float | None``;
+* an end-to-end metric named ``<quantity>.<suffix>`` measures
+  ``<quantity>`` (``quantity``) under a bound of its own, in the cells
+  it lists; a per-layer metric that moves it is named the same way;
 * ``bytes/<name>.py``: the least bytes of one kernel (``KERNEL``, its
   name in the device trace) or of the whole window.
 
@@ -82,6 +85,13 @@ def byte_count(name: str):
 
 def reference(name: str):
     return _module(BENCH / "reference" / f"{name}.py", f"bench_ref_{name}")
+
+
+def quantity(metric: dict) -> str:
+    """What an end-to-end metric measures: its name up to the first dot.
+    ``window_p95_ms.tenants`` is ``window_p95_ms`` held to a bound of its
+    own in the cells it lists."""
+    return metric["name"].split(".", 1)[0]
 
 
 def cell_metrics(bm: dict, workload_name: str, traced: bool) -> list[dict]:

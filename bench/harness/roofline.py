@@ -21,7 +21,8 @@ def kernel_roofline(ctx, name: str):
             and pat.search(o.name))
     if t <= 0:
         return None
-    least = mod.least_bytes(ctx.flows) / ctx.peaks["hbm_bytes_per_s"]
+    least = (mod.least_bytes(ctx.flows, ctx.config)
+             / ctx.peaks["hbm_bytes_per_s"])
     return 100.0 * least / t
 
 
@@ -35,5 +36,6 @@ def window_roofline(ctx):
     if t <= 0:
         return None
     mod = registry.byte_count("window")
-    least = mod.least_bytes(ctx.flows) / ctx.peaks["hbm_bytes_per_s"]
+    least = (mod.least_bytes(ctx.flows, ctx.config)
+             / ctx.peaks["hbm_bytes_per_s"])
     return 100.0 * least / t

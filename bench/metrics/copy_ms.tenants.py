@@ -1,0 +1,5 @@
+"""``copy_ms`` in the cells whose end-to-end latency is
+``window_p95_ms.tenants``."""
+from harness import registry
+
+read = registry.metric_reader("copy_ms").read

@@ -1,0 +1,5 @@
+"""``dispatch_ms`` in the cells whose end-to-end latency is
+``window_p95_ms.tenants``."""
+from harness import registry
+
+read = registry.metric_reader("dispatch_ms").read

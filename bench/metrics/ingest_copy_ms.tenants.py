@@ -1,0 +1,5 @@
+"""``ingest_copy_ms`` in the cells whose end-to-end latency is
+``window_p95_ms.tenants``."""
+from harness import registry
+
+read = registry.metric_reader("ingest_copy_ms").read

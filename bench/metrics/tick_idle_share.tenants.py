@@ -1,0 +1,5 @@
+"""``tick_idle_share`` in the cells whose end-to-end latency is
+``window_p95_ms.tenants``."""
+from harness import registry
+
+read = registry.metric_reader("tick_idle_share").read

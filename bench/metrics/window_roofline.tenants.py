@@ -1,0 +1,5 @@
+"""``window_roofline`` in the cells whose end-to-end latency is
+``window_p95_ms.tenants``."""
+from harness import registry
+
+read = registry.metric_reader("window_roofline").read

@@ -253,8 +253,10 @@ def tick(tree: Tree, key, t: int, values, strata, counts, *, device,
 
     ``sticky`` is each level's ``(W, C)`` from before the tick (identity
     by default); it matters only for strata absent at a node. Returns
-    the root's answers, the forwarded counts, and each level's buffer,
-    fill and flushed metadata as the tick leaves them."""
+    the root's answers, the forwarded counts, each level's buffer, fill
+    and flushed metadata as the tick leaves them, and under ``root`` the
+    root's sample: its buffer's ``values`` and ``strata``, the ``keep``
+    mask and each stratum's Eq. 9 ``weight``."""
     x = tree.num_strata
     caps = tree.capacities
     size = tree.size
@@ -294,8 +296,11 @@ def tick(tree: Tree, key, t: int, values, strata, counts, *, device,
         keep = select(prio, s, valid, res, x)
         y, w_out, c_out = _weights(c, res, w_in, c_in)
         if lvl == n_levels - 1:
-            out.update(_root(tree, v[0].cpu().numpy(), s[0].cpu().numpy(),
-                             keep[0].cpu().numpy(), w_out[0], int(fill[0])))
+            root = {"values": v[0].cpu().numpy(), "strata": s[0].cpu().numpy(),
+                    "keep": keep[0].cpu().numpy(), "weight": w_out[0]}
+            out.update(_root(tree, root["values"], root["strata"],
+                             root["keep"], root["weight"], int(fill[0])))
+            out["root"] = root
             break
         # Compaction: kept items to the front in slot order, at most
         # ``size`` of them; the weights follow what fits.

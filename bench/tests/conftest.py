@@ -20,13 +20,13 @@ sys.path[:0] = [str(BENCH), str(SRC)]
 # 12,000 items a tick.
 TINY_CAPACITY = 4096
 TINY_ITEMS = 12000
-TINY_LIMITS = {"mismatches": 0, "answer_gap": 1e-6, "histogram_gap": 1e-6}
 
 
 def make_tiny_checkout(dst: Path) -> Path:
     """A copy of ``BENCHMARK.json`` and ``bench/`` in ``dst`` with a tiny
     configuration of each deployment and a tiny cell of each mix
-    (``tiny.<config>.<traffic>``), made by adding files and entries."""
+    (``tiny.<config>.<traffic>``, with that cell's limits and on the lists
+    of that cell's metrics), made by adding files and entries."""
     shutil.copytree(BENCH, dst / "bench",
                     ignore=shutil.ignore_patterns("__pycache__", "tests"))
     bm = json.loads((ROOT / "BENCHMARK.json").read_text())
@@ -38,17 +38,19 @@ def make_tiny_checkout(dst: Path) -> Path:
         rel = f"bench/configs/{name}.json"
         (dst / rel).write_text(json.dumps(cfg))
         bm["configs"].append(dict(entry, name=name, file=rel))
+    tiny = {}
     for wl in list(bm["workloads"]):
         name = f"tiny.{wl['config']}.{wl['traffic']}"
+        tiny[wl["name"]] = name
         if any(w["name"] == name for w in bm["workloads"]):
             continue
         bm["workloads"].append(dict(wl, name=name,
                                     config=f"tiny-{wl['config']}"))
-        (dst / "bench" / "limits" / f"{name}.json").write_text(
-            json.dumps(TINY_LIMITS))
-    for m in bm["per_layer"]:
+        shutil.copy(BENCH / "limits" / f"{wl['name']}.json",
+                    dst / "bench" / "limits" / f"{name}.json")
+    for m in bm["end_to_end"] + bm["per_layer"]:
         if "workloads" in m:
-            m["workloads"] = [w["name"] for w in bm["workloads"]]
+            m["workloads"] += [tiny[w] for w in m["workloads"]]
     (dst / "BENCHMARK.json").write_text(json.dumps(bm, indent=1))
     return dst
 

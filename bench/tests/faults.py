@@ -61,8 +61,50 @@ def _item_altered():
     whs.level_tick = level_tick
 
 
+def _hh_key_flipped():
+    """The top heavy-hitter key's lowest bit flipped where the sketch
+    produces it."""
+    from repro_torch.query import sketches
+
+    orig = sketches.hh_update
+
+    def hh_update(sk, keys, weights):
+        out = orig(sk, keys, weights)
+        key = out.key.clone()
+        key[0] = torch.where(key[0] == sketches.HH_EMPTY_KEY, key[0],
+                             key[0] ^ 1)
+        return out._replace(key=key)
+
+    sketches.hh_update = hh_update
+
+
+def _compaction_offset():
+    """Each compaction's random offset ``u`` moved by one half."""
+    from repro_torch.query import sketches
+
+    orig = sketches._fold_level
+
+    def fold_level(u, *args, **kwargs):
+        return orig(torch.remainder(u + 0.5, 1.0), *args, **kwargs)
+
+    sketches._fold_level = fold_level
+
+
+def _decay_skipped():
+    """The decayed heavy hitters' table not decayed."""
+    from repro_torch.query import sketches
+
+    def decayed(sk, keys, weights, decay):
+        return sketches.hh_update(sk, keys, weights)
+
+    sketches.hh_decayed_update = decayed
+
+
 FAULTS = {"state_unchanged": _state_unchanged, "half_batch": _half_batch,
-          "answer_altered": _answer_altered, "item_altered": _item_altered}
+          "answer_altered": _answer_altered, "item_altered": _item_altered,
+          "hh_key_flipped": _hh_key_flipped,
+          "compaction_offset": _compaction_offset,
+          "decay_skipped": _decay_skipped}
 
 
 def plant(name: str) -> None:

@@ -89,14 +89,16 @@ def test_byte_counts_at_the_cells_shapes():
     keep = 270_003
     flows = {"level_in": [8_000_000, 4 * keep, 2 * keep],
              "level_out": [4 * keep, 2 * keep, keep]}
-    assert registry.byte_count("fused_level_tick").least_bytes(flows) == (
+    cfg = registry.config(registry.benchmark(), "approxiot-testbed")
+    assert registry.byte_count("fused_level_tick").least_bytes(
+        flows, cfg) == (
         8 * (8_000_000 + 4 * keep + 4 * keep + 2 * keep))
-    assert registry.byte_count("window").least_bytes(flows) == 92_080_312
+    assert registry.byte_count("window").least_bytes(flows, cfg) == 92_080_312
     # f = 0.8: level 0 keeps all 8M, the upper nodes 2,160,025 each.
     keep = 2_160_025
     flows = {"level_in": [8_000_000, 8_000_000, 2 * keep],
              "level_out": [8_000_000, 2 * keep, keep]}
-    assert registry.byte_count("window").least_bytes(flows) == 8 * (
+    assert registry.byte_count("window").least_bytes(flows, cfg) == 8 * (
         24_000_000 + 5 * keep)
 
 

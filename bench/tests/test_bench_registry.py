@@ -67,5 +67,17 @@ def test_benchmark_json_shape():
     for m in BM["end_to_end"]:
         assert 0.01 <= m["bound"] <= 0.25 and m["source"] == "host_clock"
     assert {m["name"] for m in BM["end_to_end"]} == {
+        "items_per_s", "window_p95_ms", "window_p95_ms.tenants", "setup_s"}
+    assert {registry.quantity(m) for m in BM["end_to_end"]} == {
         "items_per_s", "window_p95_ms", "setup_s"}
     assert len(json.dumps(BM)) < 64 * 1024
+
+
+@pytest.mark.parametrize("wl", BM["workloads"], ids=lambda w: w["name"])
+def test_cell_reports_setup_another_end_to_end_metric_and_what_it_moves(wl):
+    e2e = {m["name"] for m in registry.cell_metrics(BM, wl["name"], False)}
+    per_layer = registry.cell_metrics(BM, wl["name"], True)
+    assert "setup_s" in e2e and len(e2e) >= 2
+    assert per_layer
+    # A per-layer metric moves an end-to-end metric of every cell it lists.
+    assert all(m["moves"] in e2e for m in per_layer), wl["name"]
