@@ -108,6 +108,12 @@ __host__ __device__ inline int digit_bits(int X) {
   return b;
 }
 
+// Digits of tau's search at b bits a digit: passes over a node's slots
+// when some reservoir is short of its count (the first in the count pass).
+__host__ __device__ inline int radix_passes(int b) {
+  return (kPrioBits + b - 1) / b;
+}
+
 // Per-CTA state, carved from dynamic shared memory; the arrays that other
 // CTAs read or add to over DSMEM are marked (remote).
 struct State {
@@ -547,6 +553,11 @@ __host__ __device__ inline int state_bytes(int X) {
   return (kStateArrays + 2 * (1 << digit_bits(X))) * X * (int)sizeof(int);
 }
 
+// Strata a window of the moments' walk: 32 a fold warp pair.
+__host__ __device__ inline int stds_window(int X, StdsPlan p) {
+  return X < 32 * p.groups ? X : 32 * p.groups;
+}
+
 // The phase's shared memory after the state: 16 bytes of alignment, two
 // staging slots (values, strata: the tile's 16-byte chunks, T + 8 words;
 // valid flags, T + 32 bytes), two sorted tiles (runs padded to 4 items),
@@ -554,7 +565,7 @@ __host__ __device__ inline int state_bytes(int X) {
 // of counts, the scan's warp totals, the squares' sums handed over.
 __host__ __device__ inline int stds_bytes(int X, StdsPlan p) {
   const int P = kPartWarps, T = 32 * P * p.rounds;
-  const int W = X < 32 * p.groups ? X : 32 * p.groups;
+  const int W = stds_window(X, p);
   return 16 + 2 * (8 * (T + 8) + T + 32) + 2 * 4 * (T + 4 * W) +
          4 * (4 * W + P * W + P + W);
 }
@@ -674,7 +685,7 @@ __device__ __noinline__ void stds_phase(const float* values,
                                         unsigned char* smem) {
   const StdsPlan plan = stds_plan(X);
   const int F = 2 * plan.groups, P = kPartWarps, R = plan.rounds;
-  const int W = min(X, 32 * plan.groups), T = 32 * P * R, ST = T + 4 * W;
+  const int W = stds_window(X, plan), T = 32 * P * R, ST = T + 4 * W;
   const int both = 32 * (F + P);  // the fold and partition warps' threads
   unsigned char* at = reinterpret_cast<unsigned char*>(
       ((uintptr_t)smem + 15) & ~(uintptr_t)15);
@@ -997,7 +1008,7 @@ __device__ void select_phase(const float* __restrict__ prio,
   // read, and adds it into every CTA's hist[(p + 1) % 2] (zeroed when its
   // last content was pushed out, before the barrier that precedes these
   // adds). Pass 0's histogram was pushed by the caller.
-  const int np = (kPrioBits + b - 1) / b;
+  const int np = radix_passes(b);
   for (int p = 0; p < np; ++p) {
     const int hi = kPrioBits - p * b, lo = max(0, hi - b), w = 1 << (hi - lo);
     int* merged = st.hist[p & 1];
@@ -1336,6 +1347,19 @@ int fused_level_tick_scratch_words(int X) { return kScratchArrays * X; }
 
 // Bits per radix digit at X strata.
 int fused_level_tick_digit_bits(int X) { return digit_bits(X); }
+
+// Passes of tau's radix select over a node's slots at X strata.
+int fused_level_tick_radix_passes(int X) {
+  return radix_passes(digit_bits(X));
+}
+
+// Walks of the neyman moments over a node's valid prefix at X strata, one
+// a window of strata (0 for the other policies, which have no moments).
+int fused_level_tick_moment_windows(int X, int policy) {
+  if (policy != kNeyman) return 0;
+  const int W = stds_window(X, stds_plan(X));
+  return (X + W - 1) / W;
+}
 
 #ifdef REPRO_PHASE_PROBE
 // Names the buffer of kProbeSlots timestamps a CTA (nullptr: none).

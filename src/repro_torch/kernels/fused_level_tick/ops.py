@@ -14,6 +14,7 @@ import torch
 
 from repro_torch.kernels import LAUNCHES, _build
 from repro_torch.kernels.fused_level_tick import ref
+from repro_torch.obs.trace import span
 
 # Per-stratum cluster state sits in each CTA's dynamic shared memory: five
 # words a stratum and two radix-digit histograms of 2^b words a stratum,
@@ -49,10 +50,25 @@ def _lib():
         lib.fused_select_launch.argtypes = [P, P, P, P, I, I, I, P, P, P]
         lib.fused_select_launch.restype = I
         for fn in (lib.fused_level_tick_scratch_words,
-                   lib.fused_level_tick_digit_bits):
+                   lib.fused_level_tick_digit_bits,
+                   lib.fused_level_tick_radix_passes):
             fn.argtypes = [I]
             fn.restype = I
+        lib.fused_level_tick_moment_windows.argtypes = [I, I]
+        lib.fused_level_tick_moment_windows.restype = I
     return lib
+
+
+def regime(num_strata: int, allocation: str) -> dict:
+    """The kernel's strata regime at ``num_strata`` strata, from the
+    functions ``csrc/fused_level_tick.cu`` exports: bits per radix digit,
+    passes of the τ search over a node's slots, and walks of the neyman
+    moments over its valid prefix (0 for the other policies)."""
+    lib = _lib()
+    return {"digit_bits": lib.fused_level_tick_digit_bits(num_strata),
+            "radix_passes": lib.fused_level_tick_radix_passes(num_strata),
+            "moment_windows": lib.fused_level_tick_moment_windows(
+                num_strata, _POLICIES[allocation])}
 
 
 def _need(cond: bool, what: str, msg: str) -> None:
@@ -87,7 +103,24 @@ def fused_level_tick(values, strata, valid, priorities, w_in, c_in,
     """One fused WHS tick over a stacked level ``[n, cap]``. Returns
     ``(keep, values_c, strata_c, n_keep, c, reservoirs, y, w_out,
     c_out)``; ``n_keep`` is the kept count (not clipped to
-    ``out_capacity``)."""
+    ``out_capacity``).
+
+    Each call is the span ``level_tick`` (meta ``nodes``, ``slots``,
+    ``strata``; on the card also the launch's :func:`regime`)."""
+    with span("level_tick") as meta:
+        out = _level_tick(values, strata, valid, priorities, w_in, c_in,
+                          sample_size, num_strata, out_capacity, allocation,
+                          async_calibration)
+        if meta is not None:
+            meta.update(nodes=values.shape[0], slots=values.shape[-1],
+                        strata=num_strata)
+            if values.device.type == "cuda":
+                meta.update(regime(num_strata, allocation))
+        return out
+
+
+def _level_tick(values, strata, valid, priorities, w_in, c_in, sample_size,
+                num_strata, out_capacity, allocation, async_calibration):
     if values.device.type == "cpu":
         return ref.fused_level_tick(
             values, strata, valid, priorities, w_in, c_in, sample_size,

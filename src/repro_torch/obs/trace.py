@@ -13,7 +13,12 @@ to and their metadata into a bounded ring buffer. The span names:
   the counter ``ingest_bytes``), ``tick_read`` (``int(state.tick)``, the
   one place the call waits on the device), ``priorities`` (the epoch's
   draws, every level at once) and ``tick`` (one tick function call; meta
-  ``t``).
+  ``t``);
+* inside a tick: ``level_tick`` (one ``fused_level_tick`` call, a
+  non-root level of ``pallas_fused``; meta ``nodes``, ``slots``,
+  ``strata``, and on the card the kernel's regime at those strata from
+  ``csrc/fused_level_tick.cu``: ``digit_bits``, ``radix_passes``,
+  ``moment_windows``).
 
 When it records: a tracer records while it is enabled or while a
 ``torch.profiler`` is recording. Otherwise ``span()`` hands back one

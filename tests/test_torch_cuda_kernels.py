@@ -23,6 +23,8 @@ that the cluster of CTAs does not divide or that are smaller than it, on
 strata whose priorities are all equal or that hold no valid item, and at
 ``n_eff = 1``; the neyman moments at ``skew.peak-f10``'s two launches
 (stratum sums past 2^24), at 600 strata and over valid items with holes.
+The neyman launches of ``taxi-zones.peak-f10`` (263 zones, Zipf shares)
+are held bitwise at their full shapes too.
 ``quantile_compact`` is held on intervals the sketch builds
 (``blocked_cumsum``), where a target can fall in two slots.
 ``flash_attention`` is held to its plain version within
@@ -637,6 +639,51 @@ def test_pallas_backend_on_a_wide_level(cuda_device):
     for name in ("selected", "c", "y", "reservoir"):
         _bits(getattr(got, name).cpu().numpy(),
               getattr(want, name).numpy(), name)
+
+
+# taxi-zones.peak-f10's neyman launches (bench/configs/approxiot-taxi-zones
+# .json): 263 zones with Zipf shares and fares N(mu_r, mu_r / 4), so the
+# radix digits are 6 bits wide, the allocation's arrays live in the global
+# scratch and the moments walk the valid prefix in 3 windows of 128 strata.
+# (n, cap, budget, fill, out_capacity)
+TAXI_ZONES = 263
+TAXI_GRID = [(4, 2700032, 270003, 0.74, 270003),    # L0
+             (2, 540006, 54000, 1.0, 54000)]        # L1
+
+
+def _taxi_level(seed, n, cap, fill):
+    rng = np.random.default_rng(seed)
+    r = np.arange(1, TAXI_ZONES + 1)
+    strata = rng.choice(TAXI_ZONES, (n, cap),
+                        p=(1.0 / r) / (1.0 / r).sum()).astype(np.int32)
+    mu = 10.0 + 30.0 * strata / 262
+    vals = rng.normal(mu, mu / 4).astype(np.float32)
+    counts = rng.integers(int(0.99 * fill * cap), int(fill * cap) + 1, n)
+    valid = np.arange(cap)[None, :] < counts[:, None]
+    u = rng.random((n, cap)).astype(np.float32)
+    w_in = np.abs(rng.normal(1, 0.2, (n, TAXI_ZONES))).astype(np.float32)
+    c_in = rng.integers(0, 500, (n, TAXI_ZONES)).astype(np.float32)
+    return vals, strata, valid, u, w_in, c_in
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,cap,budget,fill,out_cap", TAXI_GRID)
+def test_fused_level_tick_kernel_at_taxi_zones(cuda_device, n, cap, budget,
+                                               fill, out_cap):
+    arrs = [torch.from_numpy(a) for a in _taxi_level(n + cap, n, cap, fill)]
+    size = torch.tensor(float(budget))
+    want = tft_ref.fused_level_tick(*arrs, size, TAXI_ZONES, out_cap,
+                                    allocation="neyman")
+    reset_launches()
+    got = tft.fused_level_tick(*(a.to(cuda_device) for a in arrs),
+                               size.to(cuda_device), TAXI_ZONES, out_cap,
+                               allocation="neyman")
+    torch.cuda.synchronize()
+    assert LAUNCHES["fused_level_tick"] == 1
+    assert tft.regime(TAXI_ZONES, "neyman") == {
+        "digit_bits": 6, "radix_passes": 6, "moment_windows": 3}
+    for name, g, w in zip(NAMES, got, want):
+        _bits(g.cpu().numpy(), w.numpy(), name)
 
 
 # ---- pallas_fused above 32 strata per node ---------------------------------

@@ -1,11 +1,14 @@
 """The spans ``CompiledPipeline.run_epoch`` records, on the CPU.
 
 Under ``torch.profiler`` one epoch leaves the tree ``run_epoch`` →
-``ingest_copy``, ``tick_read``, ``priorities``, ``tick`` × T in the
-default tracer's ring buffer, on the profiler's own clock up to one
-constant; with the default tracer and no profiler it records nothing
-and opens no ``record_function``; and tracing changes no answer and no
-state bit.
+``ingest_copy``, ``tick_read``, ``priorities``, ``tick`` × T, each
+``tick`` → ``level_tick`` a non-root level, in the default tracer's ring
+buffer, on the profiler's own clock up to one constant; with the default
+tracer and no profiler it records nothing and opens no
+``record_function``; and tracing changes no answer and no state bit, at
+4 strata and at the taxi deployment's 263. On the card (``cuda``
+marker) ``level_tick``'s meta carries the kernel's regime as
+``csrc/fused_level_tick.cu`` exports it.
 """
 import json
 
@@ -20,21 +23,29 @@ from repro_torch.obs import trace as TT  # noqa: E402
 
 TICKS = 3
 CHILDREN = ["ingest_copy", "tick_read", "priorities"] + ["tick"] * TICKS
+# A tick's level_tick spans: (nodes, slots) of levels 0 and 1 at capacity
+# 256 and fraction 0.1 (level 1 holds two children's 25 items, at least 64).
+LEVELS = [(4, 256), (2, 64)]
+TAXI_ZONES = 263
 
 
-def _pipeline():
+def _pipeline(num_strata=4, allocation="fair", device="cpu"):
     spec = api.PipelineSpec(
         topology=api.TopologySpec(fanin=(4, 2, 1), capacity=256,
-                                  num_strata=4),
+                                  num_strata=num_strata),
         sampler=api.SamplerSpec(mode="whs", backend="pallas_fused",
-                                allocation="fair", fraction=0.1),
+                                allocation=allocation, fraction=0.1),
         telemetry=api.TelemetrySpec(enabled=True), seed=5)
-    return api.compile(spec, device="cpu")
+    return api.compile(spec, device=device)
 
 
-def _ingest(seed=0):
-    sources = [S.StreamSource(S.paper_gaussian(rates=(20,) * 4),
-                              seed=seed + i) for i in range(8)]
+def _ingest(seed=0, num_strata=4):
+    if num_strata == 4:
+        specs = S.paper_gaussian(rates=(20,) * 4)
+    else:   # zone r's share of 80 items a source, Zipf (s = 1)
+        specs = [S.SubstreamSpec("gaussian", (10.0 + r, 2.0), 80.0 / r)
+                 for r in range(1, num_strata + 1)]
+    sources = [S.StreamSource(specs, seed=seed + i) for i in range(8)]
     return S.batch_ingest(sources, TICKS, 4, 256)
 
 
@@ -67,10 +78,12 @@ def test_profiled_epoch_records_the_span_tree(tracer):
     _profiled_epoch(pipe, b)
     assert tracer.well_formed()
     ev = sorted(tracer.events, key=lambda e: e.t0)
-    root, kids = ev[0], ev[1:]
+    root, kids = ev[0], [e for e in ev[1:] if e.depth == 1]
     assert root.name == "run_epoch" and root.parent is None
     assert root.meta == {"ticks": TICKS} and root.epoch_id == root.id
     assert [e.name for e in kids] == CHILDREN
+    assert [e.name for e in ev if e.depth == 2] == ["level_tick"] * (
+        len(LEVELS) * TICKS)
     assert all(e.parent == root.id and e.epoch_id == root.id
                and e.depth == 1 for e in kids)
     assert [e.meta["t"] for e in kids if e.name == "tick"] == [1, 2, 3]
@@ -122,22 +135,27 @@ def test_default_tracer_without_profiler_records_nothing(tracer,
     assert [e.name for e in tracer.events][-1] == "run_epoch"
 
 
+def _bitwise_same(a, b):
+    (s0, w0), (s1, w1) = a, b
+    for name, x, y in zip(w0._fields, w0, w1):
+        if x is not None:
+            assert torch.equal(x, y), name
+    flat0 = torch.utils._pytree.tree_leaves((s0.tree, s0.tick))
+    flat1 = torch.utils._pytree.tree_leaves((s1.tree, s1.tick))
+    assert len(flat0) == len(flat1)
+    for x, y in zip(flat0, flat1):
+        assert torch.equal(x, y)
+
+
 def test_tracing_changes_no_answer_and_no_state_bit(tracer):
     pipe, b = _pipeline(), _ingest(seed=3)
     runs = [_epoch(pipe, b), _profiled_epoch(pipe, b)]
     with tracer.on():
         runs.append(_epoch(pipe, b))
-    assert len(tracer.events) == 2 * (1 + len(CHILDREN))
-    (s0, w0), *rest = runs
-    for s, w in rest:
-        for name, a, c in zip(w0._fields, w0, w):
-            if a is not None:
-                assert torch.equal(a, c), name
-        flat0 = torch.utils._pytree.tree_leaves((s0.tree, s0.tick))
-        flat = torch.utils._pytree.tree_leaves((s.tree, s.tick))
-        assert len(flat0) == len(flat)
-        for a, c in zip(flat0, flat):
-            assert torch.equal(a, c)
+    assert len(tracer.events) == 2 * (1 + len(CHILDREN)
+                                      + len(LEVELS) * TICKS)
+    for run in runs[1:]:
+        _bitwise_same(runs[0], run)
 
 
 def test_ring_buffer_shares_the_profilers_clock(tracer, tmp_path):
@@ -172,3 +190,77 @@ def test_ring_buffer_shares_the_profilers_clock(tracer, tmp_path):
         assert inside, sp.name
         for o0, o1 in inside:
             assert sp.t0 - tol <= o0 and o1 <= sp.t1 + tol, sp.name
+
+
+def _level_ticks_by_tick(tracer):
+    """Each ``tick`` span's ``level_tick`` children, in order."""
+    ticks = {e.id: e for e in tracer.events if e.name == "tick"}
+    levels = sorted((e for e in tracer.events if e.name == "level_tick"),
+                    key=lambda e: e.t0)
+    assert all(e.parent in ticks and e.depth == ticks[e.parent].depth + 1
+               and e.epoch_id == ticks[e.parent].epoch_id
+               and ticks[e.parent].t0 <= e.t0 and e.t1 <= ticks[e.parent].t1
+               for e in levels)
+    return [[e for e in levels if e.parent == t]
+            for t in sorted(ticks, key=lambda i: ticks[i].t0)]
+
+
+@pytest.mark.parametrize("num_strata", [4, TAXI_ZONES])
+@pytest.mark.parametrize("allocation", ["fair", "neyman"])
+def test_level_tick_nests_in_tick_and_off_records_nothing(
+        tracer, num_strata, allocation):
+    """One ``level_tick`` a non-root level inside each ``tick``, its meta
+    the level's shape (the plain version on the CPU has no kernel regime);
+    off, nothing is recorded and every answer and state bit is the
+    traced run's."""
+    pipe, b = _pipeline(num_strata, allocation), _ingest(7, num_strata)
+    off = _epoch(pipe, b)
+    assert not tracer.events
+    with tracer.on():
+        on = _epoch(pipe, b)
+    _bitwise_same(off, on)
+    assert tracer.well_formed()
+    per_tick = _level_ticks_by_tick(tracer)
+    assert len(per_tick) == TICKS
+    for levels in per_tick:
+        assert [e.meta for e in levels] == [
+            {"nodes": n, "slots": cap, "strata": num_strata}
+            for n, cap in LEVELS]
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("num_strata,allocation,want", [
+    (4, "neyman", (8, 4, 1)), (4, "fair", (8, 4, 0)),
+    (TAXI_ZONES, "neyman", (6, 6, 3)), (TAXI_ZONES, "fair", (6, 6, 0))])
+def test_level_tick_meta_is_the_kernels_regime(tracer, cuda_device,
+                                               num_strata, allocation, want):
+    """On the card each ``level_tick`` also carries the launch's regime,
+    read from the functions the kernel's source exports: at 4 strata
+    8-bit digits (4 passes) and one moments window; at 263, 6-bit digits
+    (6 passes) and three windows of 128 strata (neyman only)."""
+    from repro_torch.kernels.fused_level_tick import ops as ft_ops
+
+    lib = ft_ops._lib()
+    exported = {
+        "digit_bits": lib.fused_level_tick_digit_bits(num_strata),
+        "radix_passes": lib.fused_level_tick_radix_passes(num_strata),
+        "moment_windows": lib.fused_level_tick_moment_windows(
+            num_strata, ft_ops._POLICIES[allocation])}
+    assert tuple(exported.values()) == want
+    pipe = _pipeline(num_strata, allocation, device=cuda_device)
+    b = _ingest(7, num_strata)
+    off = _epoch(pipe, b)
+    with tracer.on():
+        on = _epoch(pipe, b)
+    _bitwise_same(off, on)
+    for levels in _level_ticks_by_tick(tracer):
+        assert [e.meta for e in levels] == [
+            {"nodes": n, "slots": cap, "strata": num_strata, **exported}
+            for n, cap in LEVELS]
